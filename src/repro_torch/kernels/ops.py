@@ -1,0 +1,211 @@
+"""Front end over the port's kernels: flat and whole-tree forms.
+
+* ``fused_cosine`` / ``cosine_similarity`` / ``optimal_scale`` — kernel B1
+  (``kernels.fused_cosine``) on flat views of two tensors.
+* ``tree_fused_stats(a, b)`` — ``(a·b, ‖a‖², ‖b‖²)`` over two whole trees,
+  differentiable to any order (a ``torch.autograd.Function`` whose backward
+  is written in torch ops).
+* ``tree_ef_update(u, d, s)`` — the EF residual ``u − s·d`` over whole trees
+  through kernel B2 (``kernels.ef_update``), never materializing ``s·d``.
+
+Both tree forms stream the leaves in lockstep chunks of at most
+``TREE_CHUNK_ELEMS`` elements, and each chunk is one kernel launch.
+Adjacent small leaves are concatenated (``torch.cat``) into one chunk and
+larger ones are walked by slices, so a tree smaller than one chunk (the
+MLP's 199,210 elements) is copied whole into one buffer per operand before
+the kernel reads it: the traffic is about three times the kernel's own
+read, as in the reference, which concatenates the same way.
+"""
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import torch
+
+from repro_torch.core.tree import PyTree, tree_flatten, tree_unflatten
+from repro_torch.kernels import ef_update as _ef
+from repro_torch.kernels import fused_cosine as _fc
+
+# Per-chunk element budget for the tree-streaming reductions: 4 Mi elements
+# = 16 MiB f32 per operand.
+TREE_CHUNK_ELEMS = 1 << 22
+
+
+def _ravel_f32(leaf: torch.Tensor) -> torch.Tensor:
+    return leaf.reshape(-1).to(torch.float32).contiguous()
+
+
+def _cat(parts: List[torch.Tensor]) -> torch.Tensor:
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _check_lockstep(a_tree: PyTree, b_tree: PyTree) -> Tuple[list, list]:
+    """Lockstep streaming would silently mis-pair trees whose structures or
+    leaf shapes differ, so reject both loudly. Returns the two leaf lists."""
+    a_leaves, a_def = tree_flatten(a_tree)
+    b_leaves, b_def = tree_flatten(b_tree)
+    if a_def != b_def:
+        raise ValueError(
+            f"lockstep tree mismatch: treedefs {a_def} vs {b_def}")
+    a_shapes = [tuple(l.shape) for l in a_leaves]
+    b_shapes = [tuple(l.shape) for l in b_leaves]
+    if a_shapes != b_shapes:
+        raise ValueError(
+            f"lockstep tree mismatch: leaf shapes {a_shapes} vs {b_shapes}")
+    return a_leaves, b_leaves
+
+
+def _chunk_plan(sizes: Sequence[int],
+                chunk_elems: int) -> List[List[Tuple[int, int, int]]]:
+    """Chunking plan: a list of chunks, each a list of (leaf_idx, off, take).
+
+    Small adjacent leaves are packed into one chunk, leaves larger than
+    ``chunk_elems`` are walked by slices. The single source of truth for how
+    the tree streamers below pack leaves.
+    """
+    plan: List[List[Tuple[int, int, int]]] = []
+    cur: List[Tuple[int, int, int]] = []
+    n = 0
+    for i, size in enumerate(sizes):
+        off = 0
+        while size - off > 0:
+            take = min(chunk_elems - n, size - off)
+            cur.append((i, off, take))
+            n += take
+            off += take
+            if n == chunk_elems:
+                plan.append(cur)
+                cur, n = [], 0
+    if cur:
+        plan.append(cur)
+    return plan
+
+
+def _gather_chunk(leaves_1d: List[torch.Tensor],
+                  chunk: List[Tuple[int, int, int]]) -> torch.Tensor:
+    parts = []
+    for i, off, take in chunk:
+        v = leaves_1d[i]
+        parts.append(v if (off == 0 and take == v.numel())
+                     else v[off:off + take])
+    return _cat(parts)
+
+
+# ---------------------------------------------------------------------------
+# fused_cosine (B1)
+# ---------------------------------------------------------------------------
+
+
+def fused_cosine(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """(3,) f32 = [x·y, ‖x‖², ‖y‖²] over flat views of x, y."""
+    return _fc.fused_cosine(_ravel_f32(x), _ravel_f32(y))
+
+
+def cosine_similarity(x: torch.Tensor, y: torch.Tensor,
+                      eps: float = 1e-12) -> torch.Tensor:
+    d, xx, yy = fused_cosine(x, y)
+    return d / (torch.sqrt(xx) * torch.sqrt(yy) + eps)
+
+
+def optimal_scale(target: torch.Tensor, direction: torch.Tensor,
+                  eps: float = 1e-12) -> torch.Tensor:
+    """3SFC Eq. 8: s = <target, dir> / ‖dir‖² in one pass."""
+    d, _, yy = fused_cosine(target, direction)
+    return d / (yy + eps)
+
+
+def _stream_stats(a_leaves: Sequence[torch.Tensor],
+                  b_leaves: Sequence[torch.Tensor]) -> torch.Tensor:
+    ra = [_ravel_f32(l) for l in a_leaves]
+    rb = [_ravel_f32(l) for l in b_leaves]
+    total = None
+    for chunk in _chunk_plan([v.numel() for v in ra], TREE_CHUNK_ELEMS):
+        part = _fc.fused_cosine(_gather_chunk(ra, chunk),
+                                _gather_chunk(rb, chunk))
+        total = part if total is None else total + part
+    if total is None:                # no elements at all
+        device = ra[0].device if ra else torch.device("cpu")
+        total = torch.zeros((3,), dtype=torch.float32, device=device)
+    return total
+
+
+class _TreeFusedStats(torch.autograd.Function):
+    """Leaves arrive positionally as ``*a_leaves, *b_leaves`` (``apply``
+    tracks only positional tensors); ``n_a`` splits them. The backward is
+    plain torch ops on the saved inputs, so it is itself differentiable
+    (grad-of-grad, as the reference's custom JVP allows)::
+
+        ∂a = ct0·b + 2·ct1·a        ∂b = ct0·a + 2·ct2·b
+    """
+
+    @staticmethod
+    def forward(ctx, n_a: int, *leaves: torch.Tensor) -> torch.Tensor:
+        ctx.n_a = n_a
+        ctx.save_for_backward(*leaves)
+        return _stream_stats(leaves[:n_a], leaves[n_a:])
+
+    @staticmethod
+    def backward(ctx, ct: torch.Tensor):
+        leaves = ctx.saved_tensors
+        n_a = ctx.n_a
+        a, b = leaves[:n_a], leaves[n_a:]
+        need = ctx.needs_input_grad[1:]
+        ga, gb = [], []
+        for i, (ai, bi) in enumerate(zip(a, b)):
+            af, bf = ai.to(torch.float32), bi.to(torch.float32)
+            ga.append((ct[0] * bf + 2.0 * ct[1] * af).to(ai.dtype)
+                      if need[i] else None)
+            gb.append((ct[0] * af + 2.0 * ct[2] * bf).to(bi.dtype)
+                      if need[n_a + i] else None)
+        return (None, *ga, *gb)
+
+
+def tree_fused_stats(a_tree: PyTree, b_tree: PyTree) -> torch.Tensor:
+    """(3,) f32 = [a·b, ‖a‖², ‖b‖²] over whole trees.
+
+    One B1 launch per chunk of ``_chunk_plan``; the per-chunk triples are
+    summed in f32. A chunk of several leaves is concatenated before the
+    launch (see the module docstring). Mixed-dtype trees are cast to f32 leaf by leaf; a and b
+    must share structure and leaf shapes (``ValueError`` otherwise).
+    """
+    a_leaves, b_leaves = _check_lockstep(a_tree, b_tree)
+    return _TreeFusedStats.apply(len(a_leaves), *a_leaves, *b_leaves)
+
+
+# ---------------------------------------------------------------------------
+# ef_update (B2)
+# ---------------------------------------------------------------------------
+
+
+def ef_update(u: torch.Tensor, d: torch.Tensor, s) -> torch.Tensor:
+    """e' = u − s·d elementwise; returns u's shape, f32. ``s`` may be a
+    tensor of one element (kept on the device) or a Python number."""
+    uf, df = _ravel_f32(u), _ravel_f32(d)
+    s = torch.as_tensor(s, dtype=torch.float32, device=uf.device).reshape(1)
+    return _ef.ef_update(uf, df, s).reshape(u.shape)
+
+
+def tree_ef_update(u_tree: PyTree, d_tree: PyTree, s) -> PyTree:
+    """EF residual e' = u − s·d over whole trees, one streaming pass.
+
+    Streams the same lockstep chunks as ``tree_fused_stats`` through kernel
+    B2 (one launch per chunk, not per leaf; a chunk of several leaves is
+    concatenated first) and slices the outputs back into leaves. Output leaves are f32 in u's shapes. Not differentiable.
+    """
+    u_leaves, d_leaves = _check_lockstep(u_tree, d_tree)
+    _, treedef = tree_flatten(u_tree)
+    ru = [_ravel_f32(l) for l in u_leaves]
+    rd = [_ravel_f32(l) for l in d_leaves]
+    pieces: List[List[torch.Tensor]] = [[] for _ in u_leaves]
+    for chunk in _chunk_plan([v.numel() for v in ru], TREE_CHUNK_ELEMS):
+        out = ef_update(_gather_chunk(ru, chunk), _gather_chunk(rd, chunk), s)
+        pos = 0
+        for i, off, take in chunk:
+            pieces[i].append(out[pos:pos + take])
+            pos += take
+    new_leaves = [
+        (_cat(ps) if ps else torch.zeros((0,), dtype=torch.float32,
+                                         device=l.device)).reshape(l.shape)
+        for ps, l in zip(pieces, u_leaves)
+    ]
+    return tree_unflatten(treedef, new_leaves)
