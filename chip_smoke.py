@@ -9,7 +9,9 @@ Phases, in order; any failure exits non-zero:
              kernels/csrc`` (one nvcc per source, all at once).
 3. kernels — each kernel against its plain PyTorch version on the card,
              at lengths 0, 1, 3, 1025, 199,210 (the MLP) and 4 Mi + 5, and
-             on the MLP's 6-leaf tree; B1 twice, bitwise.
+             on the MLP's 6-leaf tree; B1 twice, bitwise. B3 (bitpack)
+             bitwise at lengths 0, 1, 31, 32, 33, 1025, 199,210 and 4 Mi + 5
+             with planted 0.0, -0.0, NaN and ±inf.
 4. main path — ``repro_torch.launch.train.main`` at the trainer's defaults
              (MLP on MNIST shapes, 3SFC+EF, N=10, K=5, B=32, S=10) for 3
              rounds, with every launch counter set to 0 just before and read
@@ -17,9 +19,15 @@ Phases, in order; any failure exits non-zero:
 5. fused decode — one round from the trained state with fused decode and
              one without must agree; the same round on the CPU (the plain
              versions) must agree with the card's.
-6. times   — each kernel at the main path's shape (CUDA events), its plain
-             version, a one-call PyTorch yardstick, its bound, and the wall
-             and device time of one main-path round.
+6. codec path — the trainer with ``--wire codec``: signSGD for 3 rounds
+             (B3a and B3b N times per round each, B1 N times, B2 never),
+             then 3SFC for 3 rounds (the main path's launches, and the
+             float run's params); then every codec's frame of one payload
+             at the MLP's shapes, on the card and on the CPU, byte for byte.
+7. times   — each kernel at the main path's shape (CUDA events), its plain
+             version, a one-call PyTorch yardstick where one exists, its
+             bound, and the wall and device time of one main-path round and
+             of one signSGD codec round.
 
 The last lines are one JSON object with every kernel's numbers, the list of
 kernels, and ``{"ok": true, "device": {...}}``.
@@ -45,8 +53,10 @@ from repro_torch.configs.run import RunConfig  # noqa: E402
 from repro_torch.core import flat  # noqa: E402
 from repro_torch.core.strategy import make_strategy  # noqa: E402
 from repro_torch.core.threesfc import SynData, init_syn  # noqa: E402
+from repro_torch.fl.budget import matched_compressors  # noqa: E402
 from repro_torch.fl.round import FLState, build_fl_round  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import bitpack as bp_mod  # noqa: E402
 from repro_torch.kernels import ef_update as ef_mod  # noqa: E402
 from repro_torch.kernels import fused_cosine as fc_mod  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
@@ -61,6 +71,8 @@ N, K, B, S = 10, 5, 32, 10
 ROUNDS = 3
 MLP_D = 199_210
 LENGTHS = (0, 1, 3, 1025, MLP_D, (1 << 22) + 5)
+B3_LENGTHS = (0, 1, 31, 32, 33, 1025, MLP_D, (1 << 22) + 5)
+CODEC_METHODS = ("fedavg", "dgc", "signsgd", "stc", "threesfc")
 B1_RTOL = 1e-5       # of (‖x‖‖y‖, ‖x‖², ‖y‖²): another summation order
 B2_ULP = 2.4e-7      # of (|u| + |s·d|): one FMA rounding vs two roundings
 # the JAX package's fused-vs-float bounds (tests/test_fused_decode.py)
@@ -75,10 +87,27 @@ def phase(name: str) -> None:
 def reset_counts() -> None:
     fc_mod.LAUNCHES = 0
     ef_mod.LAUNCHES = 0
+    for name in bp_mod.LAUNCHES:
+        bp_mod.LAUNCHES[name] = 0
 
 
 def counts() -> dict:
-    return {"fused_cosine": fc_mod.LAUNCHES, "ef_update": ef_mod.LAUNCHES}
+    return {"fused_cosine": fc_mod.LAUNCHES, "ef_update": ef_mod.LAUNCHES,
+            **bp_mod.LAUNCHES}
+
+
+def to_cpu(tree):
+    return flat.tree_map(lambda x: x.cpu(), tree)
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equality (so -0.0 differs from 0.0); f32 as its words."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.contiguous().view(torch.int32), b.contiguous().view(
+            torch.int32)
+    return torch.equal(a, b)
 
 
 def gen(device, seed: int) -> torch.Generator:
@@ -168,7 +197,40 @@ def phase_kernels(dev) -> dict:
                              cat_a, cat_b, s)
     print(f"  MLP tree (d={cat_a.numel()}): B1 max_abs_err={err_b1:.3e}, "
           f"B2 max_abs_err={err_b2:.3e}")
-    return {"fused_cosine": err_b1, "ef_update": err_b2}
+    for n in B3_LENGTHS:
+        check_b3(torch.randn(n, generator=g, device=dev))
+    x = torch.randn(1027, generator=g, device=dev)
+    check_b3(x[3:])                          # an unaligned view
+    print(f"  B3 pack_signs/unpack_signs bitwise at n={B3_LENGTHS} and an "
+          f"unaligned view, with 0.0, -0.0, NaN, +inf, -inf planted")
+    return {"fused_cosine": err_b1, "ef_update": err_b2,
+            "pack_signs": 0.0, "unpack_signs": 0.0}
+
+
+def check_b3(x: torch.Tensor) -> None:
+    """B3a and B3b against their plain versions, bitwise: the words, the
+    ±1 they unpack to (= where(x >= 0, 1, -1)) and the tail bits (1)."""
+    n = x.numel()
+    for i, v in zip((0, 5, 7, 9, 12), (0.0, -0.0, math.nan, math.inf,
+                                       -math.inf)):
+        if i < n:
+            x[i] = v
+    words = bp_mod.pack_signs(x)
+    back = bp_mod.unpack_signs(words, n)
+    want_words = bp_mod.pack_signs_plain(x)
+    want_back = bp_mod.unpack_signs_plain(want_words, n)
+    torch.cuda.synchronize()
+    if not same_bits(words, want_words):
+        bad = int(torch.nonzero(words != want_words)[0])
+        raise AssertionError(f"B3a disagrees at n={n}, word {bad}: "
+                             f"{int(words[bad])} vs {int(want_words[bad])}")
+    if not same_bits(back, want_back) or not same_bits(
+            back, torch.where(x >= 0, 1.0, -1.0)):
+        raise AssertionError(f"B3b disagrees at n={n}")
+    tail = n % 32
+    if tail and (int(words[-1]) & 0xFFFFFFFF) >> tail != (1 << (32 - tail)) - 1:
+        raise AssertionError(f"B3a tail bits not 1 at n={n}: "
+                             f"{int(words[-1]) & 0xFFFFFFFF:#010x}")
 
 
 # ---------------------------------------------------------------------------
@@ -176,12 +238,14 @@ def phase_kernels(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def phase_main_path(out_dir: str):
-    phase("main path: repro_torch.launch.train.main")
-    argv = ["--model", "mlp", "--dataset", "mnist", "--compressor", "threesfc",
-            "--clients", str(N), "--local-steps", str(K), "--batch", str(B),
-            "--rounds", str(ROUNDS), "--eval-every", "1", "--device", "cuda",
-            "--out", out_dir]
+def run_trainer(out_dir: str, compressor: str, wire: str):
+    """``train.main`` for ROUNDS rounds with every counter set to 0 just
+    before; returns (state, launches, wall seconds), after checking the
+    metrics rows are finite."""
+    argv = ["--model", "mlp", "--dataset", "mnist", "--compressor",
+            compressor, "--wire", wire, "--clients", str(N), "--local-steps",
+            str(K), "--batch", str(B), "--rounds", str(ROUNDS),
+            "--eval-every", "1", "--device", "cuda", "--out", out_dir]
     reset_counts()
     t0 = time.perf_counter()
     state = train.main(argv)
@@ -195,7 +259,14 @@ def phase_main_path(out_dir: str):
     for r in rows:
         if not (math.isfinite(r["loss"]) and math.isfinite(r["cos"])):
             raise AssertionError(f"non-finite metrics: {r}")
-    want = {"fused_cosine": ROUNDS * N * (S + 1), "ef_update": ROUNDS * N}
+    return state, launched, wall
+
+
+def phase_main_path(out_dir: str):
+    phase("main path: repro_torch.launch.train.main")
+    state, launched, wall = run_trainer(out_dir, "threesfc", "float")
+    want = {"fused_cosine": ROUNDS * N * (S + 1), "ef_update": ROUNDS * N,
+            "pack_signs": 0, "unpack_signs": 0}
     if launched != want:
         raise AssertionError(f"launches {launched}, expected {want}")
     print(f"  {ROUNDS} rounds in {wall:.2f} s (first includes warm-up), "
@@ -258,7 +329,6 @@ def phase_fused(state: FLState, dev):
     assert_close("fused params", s_fused.params, s_float.params, PARAM_TOL)
     assert_close("fused EF", s_fused.ef, s_float.ef, EF_TOL)
     # the same float round on the CPU runs the kernels' plain versions
-    to_cpu = lambda t: flat.tree_map(lambda x: x.cpu(), t)  # noqa: E731
     s_cpu, m_cpu = float_round(
         FLState(to_cpu(state.params), to_cpu(state.ef), state.round),
         to_cpu(batches), 0, syn0=SynData(*to_cpu(list(syn0))))
@@ -272,7 +342,89 @@ def phase_fused(state: FLState, dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: times
+# phase 6: the codec path through the entry point, and frames card vs CPU
+# ---------------------------------------------------------------------------
+
+
+def phase_codec_path(out_dir: str, float_state: FLState):
+    phase("codec path: repro_torch.launch.train.main --wire codec")
+    sign_state, launched, wall = run_trainer(
+        os.path.join(out_dir, "signsgd"), "signsgd", "codec")
+    # per client per round: one frame packed (B3a) and decoded (B3b), one
+    # efficiency cosine (B1); EF is u − recon, no B2
+    want = {"fused_cosine": ROUNDS * N, "ef_update": 0,
+            "pack_signs": ROUNDS * N, "unpack_signs": ROUNDS * N}
+    if launched != want:
+        raise AssertionError(f"signsgd codec launches {launched}, "
+                             f"expected {want}")
+    print(f"  signsgd: {ROUNDS} rounds in {wall:.2f} s, launches {launched}")
+    sfc_state, sfc_launched, wall = run_trainer(
+        os.path.join(out_dir, "threesfc"), "threesfc", "codec")
+    want = {"fused_cosine": ROUNDS * N * (S + 1), "ef_update": ROUNDS * N,
+            "pack_signs": 0, "unpack_signs": 0}
+    if sfc_launched != want:
+        raise AssertionError(f"threesfc codec launches {sfc_launched}, "
+                             f"expected {want}")
+    # the server's Eq. 10 backward on the decoded (D_syn, s) repeats the
+    # client's last gradient: the same numbers, so the same params
+    bitwise = all(same_bits(a, b) for a, b in zip(
+        flat.tree_leaves(sfc_state.params),
+        flat.tree_leaves(float_state.params)))
+    print(f"  threesfc: {ROUNDS} rounds in {wall:.2f} s, launches "
+          f"{sfc_launched}; params bitwise equal to the float-mode run: "
+          f"{bitwise}")
+    assert_close("threesfc codec vs float params", sfc_state.params,
+                 float_state.params, PARAM_TOL)
+    return sign_state, launched
+
+
+def codec_payload(method: str, dev, g):
+    """(codec, wire payload) of ``method`` at the MLP's shapes on ``dev``:
+    the strategy's own encode of an update with planted exact zeros."""
+    model = make_mlp(MNIST_SPEC)
+    params = model.init(g)
+    comp = matched_compressors("mlp", MNIST_SPEC, MLP_D)[method]
+    strategy = make_strategy(comp, loss_fn=model.syn_loss,
+                             syn_spec=vision_syn_spec(MNIST_SPEC, comp),
+                             local_lr=0.01)
+    if comp.kind == "threesfc":
+        wire = (init_syn(g, strategy.syn_spec),
+                torch.tensor(-0.37, device=dev))
+    else:
+        u = mlp_tree(g, 1e-2)
+        for leaf in flat.tree_leaves(u):
+            leaf.view(-1)[::16] = 0.0
+        wire = strategy.client_encode(g, u, params).wire
+    return strategy.wire_codec(params), wire
+
+
+def phase_frames(dev) -> None:
+    phase("frames: every codec on the card vs the CPU")
+    g = gen(dev, 17)
+    for method in CODEC_METHODS:
+        codec, wire = codec_payload(method, dev, g)
+        card = codec.encode(wire, round_idx=2, client_idx=9)
+        cpu_wire = to_cpu(wire)
+        host = codec.encode(cpu_wire, round_idx=2, client_idx=9)
+        if not torch.equal(card.cpu(), host):
+            bad = int(torch.nonzero(card.cpu() != host)[0])
+            raise AssertionError(f"{codec.kind}: card frame differs from "
+                                 f"the CPU's at byte {bad}")
+        want = flat.tree_leaves(codec.canonical(cpu_wire))
+        for where, got in (("CPU", codec.decode(card.cpu())),
+                           ("card", to_cpu(codec.decode(card)))):
+            leaves = flat.tree_leaves(got)
+            if len(leaves) != len(want) or not all(
+                    same_bits(a, b) for a, b in zip(leaves, want)):
+                raise AssertionError(f"{codec.kind}: the card's frame "
+                                     f"decoded on the {where} differs from "
+                                     f"the canonical payload")
+        print(f"  {codec.kind}: {codec.nbytes} B, card frame == CPU frame, "
+              f"decodes to the canonical payload on the CPU and the card")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: times
 # ---------------------------------------------------------------------------
 
 
@@ -330,21 +482,25 @@ def bound_ms(nbytes: int, flops: int) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def round_profile(float_round, state, batches, syn0) -> dict:
-    """Wall time of main-path rounds, and the device's kernel time in one
-    of them from torch.profiler."""
+KERNEL_NAMES = ("fused_cosine_partials", "fused_cosine_finish",
+                "ef_update_kernel", "pack_signs_kernel", "unpack_signs_kernel")
+
+
+def round_profile(one_round) -> dict:
+    """Wall time of ``one_round()`` (median of 3), and the device's kernel
+    time in one more from torch.profiler."""
     walls = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        float_round(state, batches, 0, syn0=syn0)
+        one_round()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        float_round(state, batches, 0, syn0=syn0)
+        one_round()
         torch.cuda.synchronize()
     # kernel rows only (device_type CUDA): the aten:: rows repeat the time
     # of the kernels they launch
@@ -355,8 +511,7 @@ def round_profile(float_round, state, batches, syn0) -> dict:
         t = e.device_time_total
         dev_us += t
         top.append((t, e.key, e.count))
-        for name in ("fused_cosine_partials", "fused_cosine_finish",
-                     "ef_update_kernel"):
+        for name in KERNEL_NAMES:
             if name in e.key:
                 per_kernel[name] = (t, e.count)
     top.sort(reverse=True)
@@ -365,7 +520,22 @@ def round_profile(float_round, state, batches, syn0) -> dict:
             "per_kernel_us": per_kernel, "top": top[:8]}
 
 
-def phase_times(dev, launched, errs, float_round, state, batches, syn0):
+def print_profile(label: str, prof: dict) -> None:
+    busy = (f"{prof['round_device_ms']:.3f} ms, busy share "
+            f"{prof['round_device_ms'] / prof['round_wall_ms']:.4f}"
+            if prof["round_device_ms"] else "not measured")
+    print(f"  {label} (N={N}, K={K}, B={B}): wall "
+          f"{prof['round_wall_ms']:.3f} ms (median of 3), device kernel "
+          f"time {busy}")
+    for name, (t, cnt) in sorted(prof["per_kernel_us"].items()):
+        print(f"    {name}: {cnt} launches, {t / cnt:.3f} us each")
+    for t, key, cnt in prof["top"]:
+        print(f"    top: {t / 1e3:.3f} ms  {cnt:5d}x  {key[:90]}")
+
+
+def phase_times(dev, launched, errs, rounds):
+    """``launched`` holds each kernel's launches on its path's trainer run;
+    ``rounds`` is [(label, one_round)] to profile."""
     phase("times at the main path's shape")
     g = gen(dev, 13)
     x = torch.randn(MLP_D, generator=g, device=dev)
@@ -373,6 +543,8 @@ def phase_times(dev, launched, errs, float_round, state, batches, syn0):
     s = torch.tensor([0.37], device=dev)
     X = torch.stack([x, y])
     n = x.numel()
+    words = bp_mod.pack_signs(x)
+    nw = words.numel()
     rows = []
     specs = [
         ("fused_cosine", "src/repro_torch/kernels/csrc/fused_cosine.cu",
@@ -387,17 +559,29 @@ def phase_times(dev, launched, errs, float_round, state, batches, syn0):
          lambda: ef_mod.ef_update_plain(x, y, s),
          lambda: torch.addcmul(x, y, s, value=-1),
          3 * n * 4 + 4, 2 * n, N),
+        # no single PyTorch call packs signs into words: no library time
+        ("pack_signs", "src/repro_torch/kernels/csrc/bitpack.cu",
+         "src/repro/kernels/bitpack.py:56",
+         lambda: bp_mod.pack_signs(x),
+         lambda: bp_mod.pack_signs_plain(x),
+         None, n * 4 + nw * 4, n, N),
+        ("unpack_signs", "src/repro_torch/kernels/csrc/bitpack.cu",
+         "src/repro/kernels/bitpack.py:71",
+         lambda: bp_mod.unpack_signs(words, n),
+         lambda: bp_mod.unpack_signs_plain(words, n),
+         None, nw * 4 + n * 4, n, N),
     ]
     for (name, source, replaces, kern, plain, lib, nbytes, flops,
          per_round) in specs:
         kern_ms = graph_ms(kern)
         eager_ms = call_ms(kern)
         plain_ms = graph_ms(plain)
-        library_ms = graph_ms(lib)
+        library_ms = graph_ms(lib) if lib is not None else None
         b_ms, b_by = bound_ms(nbytes, flops)
+        lib_txt = f"{library_ms:.6f}" if library_ms is not None else "none"
         print(f"  {name}: kernel_ms={kern_ms:.6f} (eager call "
               f"{eager_ms:.6f}) bound_ms={b_ms:.6f} ({b_by}) "
-              f"plain_ms={plain_ms:.6f} library_ms={library_ms:.6f} "
+              f"plain_ms={plain_ms:.6f} library_ms={lib_txt} "
               f"launches_per_round={per_round}")
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launched[name],
@@ -406,18 +590,20 @@ def phase_times(dev, launched, errs, float_round, state, batches, syn0):
                      "bound_by": b_by, "library_ms": library_ms,
                      "call_ms": eager_ms,
                      "launches_per_round": per_round})
-    prof = round_profile(float_round, state, batches, syn0)
-    busy = (f"{prof['round_device_ms']:.3f} ms, busy share "
-            f"{prof['round_device_ms'] / prof['round_wall_ms']:.4f}"
-            if prof["round_device_ms"] else "not measured")
-    print(f"  main-path round (N={N}, K={K}, B={B}, S={S}): wall "
-          f"{prof['round_wall_ms']:.3f} ms (median of 3), device kernel "
-          f"time {busy}")
-    for name, (t, cnt) in sorted(prof["per_kernel_us"].items()):
-        print(f"    {name}: {cnt} launches, {t / cnt:.3f} us each")
-    for t, key, cnt in prof["top"]:
-        print(f"    top: {t / 1e3:.3f} ms  {cnt:5d}x  {key[:90]}")
+    for label, one_round in rounds:
+        print_profile(label, round_profile(one_round))
     return rows
+
+
+def sign_codec_round(state: FLState):
+    """One signSGD codec-mode round at the main path's N, K, B."""
+    model = make_mlp(MNIST_SPEC)
+    comp = matched_compressors("mlp", MNIST_SPEC, MLP_D)["signsgd"]
+    strategy = make_strategy(comp, local_lr=0.01)
+    run = RunConfig(fl=FLConfig(num_clients=N, local_steps=K, local_lr=0.01,
+                                local_batch=B, compressor=comp), wire="codec")
+    return build_fl_round(model.loss, strategy, run,
+                          codec=strategy.wire_codec(state.params))
 
 
 def main() -> int:
@@ -445,13 +631,21 @@ def main() -> int:
     errs = phase_kernels(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
         state, launched = phase_main_path(out_dir)
-    float_round, batches, syn0 = phase_fused(state, dev)
-    rows = phase_times(dev, launched, errs, float_round, state, batches,
-                       syn0)
+        float_round, batches, syn0 = phase_fused(state, dev)
+        sign_state, codec_launched = phase_codec_path(out_dir, state)
+    phase_frames(dev)
+    launched = {**launched, "pack_signs": codec_launched["pack_signs"],
+                "unpack_signs": codec_launched["unpack_signs"]}
+    sign_round = sign_codec_round(sign_state)
+    rows = phase_times(dev, launched, errs, [
+        (f"main-path round (S={S})",
+         lambda: float_round(state, batches, 0, syn0=syn0)),
+        ("signSGD codec round", lambda: sign_round(sign_state, batches, 0)),
+    ])
 
     print(card)
     print(json.dumps({"kernels": rows}))
-    print('kernels: ["fused_cosine", "ef_update"]')
+    print("kernels: " + json.dumps([r["name"] for r in rows]))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,11 +1,11 @@
 """RunConfig: the knobs of one federated run, validated at construction.
 
-The fields this slice of the port runs: the FL schedule (``fl``), the
-client fan-out, the wire mode, fused decode, microbatching and the fault
-and transport knobs at their defaults. The checks copy the JAX package's
-``configs/run.py`` for these fields; a knob whose path is not ported yet
-(``client_parallel='shard_map'``, ``wire='codec'``,
-``transport='socket'``, any fault) raises ``NotImplementedError``.
+The fields the port runs: the FL schedule (``fl``), the client fan-out,
+the wire mode and its dtype policy, fused decode, microbatching and the
+fault and transport knobs at their defaults. The checks copy the JAX
+package's ``configs/run.py`` for these fields; a knob whose path is not
+ported yet (``client_parallel='shard_map'``, ``transport='socket'``, any
+fault) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,8 +29,11 @@ class RunConfig:
     fl: FLConfig = field(default_factory=FLConfig)
     # client fan-out: 'vmap' is the single-device loop over clients
     client_parallel: str = "vmap"
-    # what crosses the client/server boundary: float trees (accounted bytes)
+    # what crosses the client/server boundary: float trees (accounted
+    # bytes) or framed uint8 codec buffers (measured bytes)
     wire: str = "float"
+    # dtype policy for the serialized synthetic payload (codec wire only)
+    wire_policy: str = "fp32"
     # strategy-declared capability: aggregate from the batched payloads
     # (3SFC: one backward over every (D_syn, s)) instead of reconstructions
     fused_decode: bool = False
@@ -84,8 +87,6 @@ class RunConfig:
         if self.client_parallel == "shard_map":
             raise NotImplementedError(
                 f"client_parallel='shard_map' {_NOT_PORTED}")
-        if self.wire == "codec":
-            raise NotImplementedError(f"wire='codec' {_NOT_PORTED}")
         if self.transport == "socket":
             raise NotImplementedError(f"transport='socket' {_NOT_PORTED}")
         if self.has_faults:
@@ -114,4 +115,6 @@ class RunConfig:
             compressor=compressor,
             seed=args.seed,
         )
-        return cls(fl=fl)
+        return cls(fl=fl,
+                   wire=getattr(args, "wire", "float"),
+                   wire_policy=getattr(args, "wire_policy", "fp32"))

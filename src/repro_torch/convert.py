@@ -22,7 +22,8 @@ def params_from_numpy(tree: PyTree, device) -> PyTree:
         a = np.asarray(a)
         if np.issubdtype(a.dtype, np.floating):
             a = a.astype(np.float32)
-        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+        # a fresh, writable, contiguous copy that keeps 0-d leaves 0-d
+        return torch.as_tensor(np.array(a), device=device)
     return tree_map(leaf, tree)
 
 

@@ -1,7 +1,8 @@
 """CompressionStrategy: one protocol object per compression method.
 
-The port of the JAX package's ``core/strategy.py`` for the methods this
-slice runs (``identity`` = FedAvg, and ``threesfc``). A strategy carries:
+The port of the JAX package's ``core/strategy.py`` for the methods that
+have a wire format: ``identity`` (FedAvg), ``topk`` (DGC), ``signsgd``,
+``stc`` and ``threesfc``. A strategy carries:
 
 * ``client_encode(key, u, params) -> TreeCompressed`` — the per-client
   encoder. ``key`` is a ``torch.Generator`` the encoder draws from (3SFC's
@@ -9,17 +10,19 @@ slice runs (``identity`` = FedAvg, and ``threesfc``). A strategy carries:
   initial ``D_syn`` directly (the seam that lets tests start from the
   reference's draws).
 * ``server_decode(payload, params)`` — one client's reconstruction from
-  its wire payload.
+  its canonical wire payload.
 * ``server_aggregate(params, payloads)`` (when
   ``supports_fused_aggregate``) — the aggregate straight from the batched
   payloads.
+* ``wire_codec(params, policy=...)`` — the method's byte codec
+  (``repro_torch.comm.codec``).
 * ``payload_floats(params)`` and ``init_ef_state(params)``.
 
 The base class provides the derived steps the FL round consumes —
-``step`` (float mode) and ``payload_step`` (fused mode) — sharing one copy
-of the Eq. 6 EF algebra; when an encoder factors ``recon = scale ·
-direction``, the EF residual is one pass of kernel B2
-(``ops.tree_ef_update``).
+``step`` (float mode), ``payload_step`` (fused mode) and ``wire_step``
+(codec mode) — sharing one copy of the Eq. 6 EF algebra; when an encoder
+factors ``recon = scale · direction``, the EF residual is one pass of
+kernel B2 (``ops.tree_ef_update``).
 """
 from __future__ import annotations
 
@@ -33,8 +36,6 @@ from repro_torch.core.tree import tree_flatten, tree_leaves, tree_unflatten
 from repro_torch.kernels import ops
 
 PyTree = Any
-
-_NOT_PORTED = "not ported yet, see ROADMAP.md"
 
 
 class CompressMetrics(NamedTuple):
@@ -59,6 +60,12 @@ class TreeCompressed(NamedTuple):
     direction: Any = None
     scale: Optional[torch.Tensor] = None
     wire: Any = None
+
+
+def leaf_k(n: int, ratio: float) -> int:
+    """Kept entries for a size-n leaf at ``keep_ratio`` — the one source of
+    per-leaf budgets (the wire codecs derive their layouts from it)."""
+    return max(1, int(round(ratio * n)))
 
 
 def _device_of(tree: PyTree) -> torch.device:
@@ -120,7 +127,17 @@ class CompressionStrategy:
             f"aggregation (mask_payloads)")
 
     def wire_codec(self, params: PyTree, *, policy: Optional[str] = None):
-        raise NotImplementedError(f"the wire codec {_NOT_PORTED}")
+        """Build this method's registered byte codec over a params template.
+
+        Raises ``KeyError`` for kinds without a wire format.
+        """
+        from repro_torch.comm.codec import CODECS  # lazy: comm imports core
+        if self.cfg.kind not in CODECS:
+            raise KeyError(
+                f"no wire codec registered for compressor kind "
+                f"{self.cfg.kind!r} (have: {sorted(CODECS)})")
+        policy = policy or getattr(self.cfg, "wire_dtype", "fp32")
+        return CODECS[self.cfg.kind](self.cfg, params, policy, strategy=self)
 
     # -- shared EF algebra (Eq. 6) -----------------------------------------
     def _accumulate(self, g_tree: PyTree, e_tree: PyTree) -> PyTree:
@@ -162,7 +179,23 @@ class CompressionStrategy:
 
     def wire_step(self, key, g_tree, e_tree, params, *, codec,
                   round_idx=0, client_idx=0):
-        raise NotImplementedError(f"codec-mode rounds {_NOT_PORTED}")
+        """Codec mode: (framed uint8 buffer, new_e_tree, CompressMetrics).
+
+        Same EF algebra as ``step``, but the reconstruction used for EF and
+        the cosine is the codec's dequantized view (``Codec.client_view``),
+        so the client stays consistent with what the server decodes.
+        """
+        u = self._accumulate(g_tree, e_tree)
+        out = self.client_encode(key, u, params)
+        if out.wire is None:
+            raise ValueError(
+                f"compressor kind {self.cfg.kind!r} emits no wire payload")
+        buf = codec.encode(out.wire, round_idx=round_idx,
+                           client_idx=client_idx)
+        recon, direction, scale = codec.client_view(out)
+        e_new = self._ef_update(u, e_tree, recon, direction, scale)
+        cos = self._efficiency_cosine(out, recon, u)
+        return buf, e_new, CompressMetrics(cos, out.floats, out.aux)
 
 
 # ---------------------------------------------------------------------------
@@ -205,8 +238,20 @@ def make_strategy(cfg: CompressorConfig, *, loss_fn=None, syn_spec=None,
 
 
 # ---------------------------------------------------------------------------
-# the methods of this slice
+# the methods with a wire format
 # ---------------------------------------------------------------------------
+
+
+def _top_idx(v: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest |v|, in descending order of magnitude
+    (tied magnitudes may come in another order than ``lax.top_k``'s)."""
+    return torch.topk(torch.abs(v), k, sorted=True).indices
+
+
+def _scatter(n: int, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """(n,) f32 zeros with ``vals`` at ``idx``."""
+    return torch.zeros(n, dtype=torch.float32, device=vals.device) \
+        .index_put_((idx.to(torch.int64),), vals.to(torch.float32))
 
 
 @register_strategy("identity")
@@ -224,6 +269,90 @@ class IdentityStrategy(CompressionStrategy):
 
     def server_decode(self, payload, params):
         return payload
+
+
+@register_strategy("topk")
+class TopKStrategy(CompressionStrategy):
+    """DGC-style magnitude top-k per leaf: exact values + indices."""
+
+    def payload_floats(self, params) -> float:
+        return float(sum(2 * leaf_k(l.numel(), self.cfg.keep_ratio)
+                         for l in tree_leaves(params)))
+
+    def client_encode(self, key, u, params):
+        leaves, treedef = tree_flatten(u)
+        recs, wires = [], []
+        for l in leaves:
+            v = l.reshape(-1)
+            idx = _top_idx(v, leaf_k(v.numel(), self.cfg.keep_ratio))
+            vals = v[idx]
+            recs.append(_scatter(v.numel(), idx, vals).reshape(l.shape))
+            wires.append((vals, idx))
+        return TreeCompressed(tree_unflatten(treedef, recs),
+                              _scalar(self.payload_floats(params), u),
+                              _scalar(0.0, u), wire=tuple(wires))
+
+    def server_decode(self, payload, params):
+        leaves, treedef = tree_flatten(params)
+        out = [_scatter(leaf.numel(), idx, vals).reshape(leaf.shape)
+               for (vals, idx), leaf in zip(payload, leaves)]
+        return tree_unflatten(treedef, out)
+
+
+@register_strategy("signsgd")
+class SignSGDStrategy(CompressionStrategy):
+    """signSGD with per-leaf mean-|x| scale; 1 bit/coordinate on the wire."""
+
+    def payload_floats(self, params) -> float:
+        leaves = tree_leaves(params)
+        return sum(l.numel() for l in leaves) / 32.0 + len(leaves)
+
+    def client_encode(self, key, u, params):
+        leaves, treedef = tree_flatten(u)
+        scales = [torch.mean(torch.abs(l)) for l in leaves]
+        recon = tree_unflatten(
+            treedef, [s * torch.sign(l) for s, l in zip(scales, leaves)])
+        # wire: the sign *source* tree + per-leaf scales; the codec packs
+        # one bit per coordinate from it (bit = coord >= 0)
+        return TreeCompressed(recon, _scalar(self.payload_floats(params), u),
+                              _scalar(0.0, u), wire=(u, torch.stack(scales)))
+
+    def server_decode(self, payload, params):
+        # the canonical payload is already the reconstructed tree (signs
+        # re-scaled by the codec's unpack)
+        return payload
+
+
+@register_strategy("stc")
+class STCStrategy(CompressionStrategy):
+    """STC: ternary top-k (single magnitude mu per leaf + signs)."""
+
+    def payload_floats(self, params) -> float:
+        ks = [leaf_k(l.numel(), self.cfg.keep_ratio)
+              for l in tree_leaves(params)]
+        return float(sum(ks)) + sum(ks) / 32.0 + len(ks)
+
+    def client_encode(self, key, u, params):
+        leaves, treedef = tree_flatten(u)
+        recs, wires = [], []
+        for l in leaves:
+            v = l.reshape(-1)
+            idx = _top_idx(v, leaf_k(v.numel(), self.cfg.keep_ratio))
+            vals = v[idx]
+            mu = torch.mean(torch.abs(vals))
+            sgn = torch.sign(vals)
+            recs.append(_scatter(v.numel(), idx, mu * sgn).reshape(l.shape))
+            wires.append((sgn, idx, mu))
+        return TreeCompressed(tree_unflatten(treedef, recs),
+                              _scalar(self.payload_floats(params), u),
+                              _scalar(0.0, u), wire=tuple(wires))
+
+    def server_decode(self, payload, params):
+        leaves, treedef = tree_flatten(params)
+        out = [_scatter(leaf.numel(), idx, mu * pm1)
+               .reshape(leaf.shape)
+               for (pm1, idx, mu), leaf in zip(payload, leaves)]
+        return tree_unflatten(treedef, out)
 
 
 @register_strategy("threesfc")

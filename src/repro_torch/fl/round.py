@@ -6,13 +6,22 @@ three phases, each parameterized by the ``RunConfig`` and the
 
   1. **client phase** — every client runs K local SGD steps, then the
      strategy EF-compresses its accumulated update into a *message*: the
-     reconstruction tree (float mode) or the raw wire payload (fused mode).
-     The JAX package vmaps this over clients; here it is a loop.
-  2. **boundary** — the messages are stacked on a leading client axis.
+     reconstruction tree (float mode), the raw wire payload (fused mode)
+     or a framed ``uint8`` codec buffer (codec mode, ``run.wire ==
+     'codec'``). The JAX package vmaps this over clients; here it is a
+     loop.
+  2. **boundary** — in codec mode the server decodes each frame, one after
+     another; the messages are then stacked on a leading client axis.
   3. **server phase** — the default path averages the per-client
      reconstructions (``fl.server``); a strategy declaring
      ``supports_fused_aggregate`` (3SFC) aggregates straight from the
      batched payloads (``strategy.server_aggregate``, one backward).
+
+Codec mode serializes each client's payload with the codec from
+``repro_torch.comm.make_codec`` (or ``strategy.wire_codec``); EF uses the
+codec's dequantized view, so wherever the codec is lossless the round
+equals the float-mode round, and ``RoundMetrics.wire_bytes_up`` is the
+measured frame size (0 in float mode).
 
 Randomness: client ``i``'s encoder draws from a ``torch.Generator`` seeded
 with ``fold_in(key, i)``, where ``key`` is the round's integer seed; the
@@ -97,12 +106,29 @@ def _stack(trees) -> PyTree:
     return flat.tree_map(lambda *xs: torch.stack(xs), trees[0], *trees[1:])
 
 
+def _check_codec(run: RunConfig, strategy: CompressionStrategy,
+                 codec) -> None:
+    """Validate the (wire, codec) pair for codec mode."""
+    if run.wire == "float":
+        return
+    if codec is None:
+        raise ValueError("wire='codec' requires a codec "
+                         "(see repro_torch.comm.make_codec)")
+    if codec.kind != strategy.cfg.kind:
+        raise ValueError(f"codec kind {codec.kind!r} does not match "
+                         f"compressor kind {strategy.cfg.kind!r}")
+    codec.check_round_wire()
+
+
 def build_fl_round(
     loss_fn: Callable[[PyTree, Dict], torch.Tensor],
     strategy: CompressionStrategy,
     run: RunConfig,
+    *,
+    codec=None,
 ) -> Callable[..., Tuple[FLState, RoundMetrics]]:
-    """The round builder over (strategy × float/fused decode).
+    """The round builder over (strategy × float/codec wire × float/fused
+    decode).
 
     ``run.fused_decode`` requires ``strategy.supports_fused_aggregate``:
     for 3SFC, since every ĝ_i is evaluated at the same w^t (Eq. 10),
@@ -120,12 +146,23 @@ def build_fl_round(
     """
     cfg: FLConfig = run.fl
     fused = run.fused_decode
+    wired = run.wire == "codec"
     N = cfg.num_clients
     if fused and not strategy.supports_fused_aggregate:
         raise ValueError(
             f"fused_decode requires a strategy with "
             f"supports_fused_aggregate; {strategy.cfg.kind!r} has none")
-    encode = strategy.payload_step if fused else strategy.step
+    _check_codec(run, strategy, codec)
+    if wired:
+        def encode(key_i, g, ef_i, params, cid, rnd):
+            return strategy.wire_step(key_i, g, ef_i, params, codec=codec,
+                                      round_idx=rnd, client_idx=cid)
+    else:
+        step = strategy.payload_step if fused else strategy.step
+
+        def encode(key_i, g, ef_i, params, cid, rnd):
+            return step(key_i, g, ef_i, params)
+    wire_bytes = float(codec.nbytes) if wired else 0.0
 
     def fl_round(state: FLState, client_batches: PyTree, key: int,
                  weights: Optional[torch.Tensor] = None,
@@ -142,13 +179,18 @@ def build_fl_round(
                      else client_generator(key, i, device))
             g, loss = local_train(loss_fn, params, batches_i, cfg.local_lr,
                                   num_micro=run.num_micro)
-            msg, ef_row, m = encode(key_i, g, ef_i, params)
+            msg, ef_row, m = encode(key_i, g, ef_i, params, i, state.round)
             # the new residual row goes straight into the (N, ...) tensors
             flat.tree_map(lambda dst, src: dst[i].copy_(src), new_ef, ef_row)
             msgs.append(msg)
             losses.append(loss)
             cos.append(m.cosine)
             floats.append(m.payload_floats)
+        if wired:
+            # the server decodes frame by frame: one canonical payload each
+            msgs = [codec.decode(buf) for buf in msgs]
+            if not fused:
+                msgs = [codec.recon_tree(c, params) for c in msgs]
         if fused:
             syns = SynData(*[torch.stack(ts)
                              for ts in zip(*[s for s, _ in msgs])])
@@ -165,7 +207,7 @@ def build_fl_round(
             cosine=torch.stack(cos),
             payload_floats=pf,
             update_norm=flat.tree_norm(agg),
-            wire_bytes_up=0.0,
+            wire_bytes_up=wire_bytes,
             arrivals=float(N),
         )
         return FLState(new_params, new_ef, state.round + 1), rm

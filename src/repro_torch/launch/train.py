@@ -5,10 +5,13 @@ Runs an in-process FL training job on the paper's vision setting through
 device, the round is built by ``repro_torch.fl.round.build_fl_round`` over
 the compressor's registered strategy, and the flags fold into one
 validated ``RunConfig`` (logged as ``run_config.json`` next to
-``metrics.jsonl``).
+``metrics.jsonl``). ``--wire codec`` runs the round on serialized uint8
+frames (``repro_torch.comm``), one per client per round.
 
     PYTHONPATH=src python -m repro_torch.launch.train --model mlp \
         --dataset mnist --compressor threesfc --rounds 200 --clients 10
+    PYTHONPATH=src python -m repro_torch.launch.train --compressor signsgd \
+        --wire codec
 
 It runs on the CUDA device unless ``--device cpu`` is given, and raises
 when no CUDA device is available and the CPU was not asked for.
@@ -75,6 +78,8 @@ def train_vision(args) -> FLState:
     strategy = make_strategy(comp, loss_fn=model.syn_loss, syn_spec=syn_spec,
                              local_lr=args.lr)
     run = RunConfig.from_flags(args, compressor=comp)
+    codec = strategy.wire_codec(params, policy=run.wire_policy) \
+        if run.wire == "codec" else None
 
     cpu = torch.device("cpu")
     train = make_class_image_dataset(_generator(cpu, fold_in(args.seed, 0)),
@@ -86,7 +91,7 @@ def train_vision(args) -> FLState:
                                 seed=args.seed, min_per_client=args.batch)
     pools = device_pools(parts, device)
     engine = RoundEngine(
-        build_fl_round(model.loss, strategy, run),
+        build_fl_round(model.loss, strategy, run, codec=codec),
         vision_batcher(train.x, train.y, pools, args.local_steps, args.batch),
         seed=args.seed)
     state = engine.init_state(params, args.clients, strategy)
@@ -123,7 +128,7 @@ def main(argv=None) -> FLState:
                     choices=["mlp", "mnistnet", "convnet", "resnet", "regnet"])
     ap.add_argument("--dataset", default="mnist", choices=sorted(DATASETS))
     ap.add_argument("--compressor", default="threesfc",
-                    choices=["fedavg", "threesfc"])
+                    choices=["fedavg", "dgc", "signsgd", "stc", "threesfc"])
     ap.add_argument("--rounds", type=int, default=200)
     ap.add_argument("--clients", type=int, default=10)
     ap.add_argument("--local-steps", type=int, default=5, dest="local_steps")
@@ -134,6 +139,10 @@ def main(argv=None) -> FLState:
     ap.add_argument("--eval-every", type=int, default=10, dest="eval_every")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="experiments/train_run_torch")
+    ap.add_argument("--wire", default="float", choices=["float", "codec"],
+                    help="what crosses the client/server boundary: float "
+                         "trees (accounted bytes) or the repro_torch.comm "
+                         "codec's framed uint8 buffers (measured bytes)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; the run raises when cuda is "
                          "asked for and no CUDA device is available")

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import bitpack
 from repro_torch.kernels import ef_update as ef_mod
 from repro_torch.kernels import fused_cosine as fc_mod
 from repro_torch.launch import train
@@ -86,6 +87,11 @@ def test_wrappers_raise_on_a_device_they_do_not_run_on():
         fc_mod.fused_cosine(x, x)
     with pytest.raises(ValueError, match="cpu or cuda"):
         ef_mod.ef_update(x, x, torch.ones(1, device="meta"))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        bitpack.pack_signs(torch.ones(40, device="meta"))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        bitpack.unpack_signs(torch.ones(2, dtype=torch.int32, device="meta"),
+                             40)
 
 
 def test_missing_nvcc_names_where_it_looked(monkeypatch):
@@ -102,6 +108,6 @@ def test_missing_nvcc_names_where_it_looked(monkeypatch):
 def test_library_names_follow_the_sources():
     paths = {n: _build._lib_path(n) for n in _build.KERNELS}
     assert sorted(p.name.split("-")[0] for p in paths.values()) == \
-        ["libef_update", "libfused_cosine"]
+        ["libbitpack", "libef_update", "libfused_cosine"]
     assert all(p.parent == _build.BUILD_DIR for p in paths.values())
     assert _build._lib_path("fused_cosine") == paths["fused_cosine"]

@@ -241,11 +241,13 @@ def test_engine_batches_are_a_function_of_seed_round_client():
 
 def test_runconfig_validation():
     fl = FLConfig()
-    for kw in ({"client_parallel": "shard_map"}, {"wire": "codec"},
+    for kw in ({"client_parallel": "shard_map"},
                {"transport": "socket"}, {"drop_rate": 0.1},
                {"participation_rate": 0.5}):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             RunConfig(fl=fl, **kw)
+    codec = RunConfig(fl=fl, wire="codec", wire_policy="fp16").to_json()
+    assert codec["wire"] == "codec" and codec["wire_policy"] == "fp16"
     for kw in ({"client_parallel": "pmap"}, {"wire": "bytes"},
                {"num_micro": 0}, {"straggler_rate": 0.5},
                {"fused_decode": True, "staleness_max": 1}):

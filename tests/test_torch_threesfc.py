@@ -202,7 +202,7 @@ def test_payload_budget_matches_reference(world):
     from repro_torch.fl.budget import matched_compressors, payload_budget
     assert payload_budget("mlp", MNIST_SPEC) == jbudget("mlp", JMNIST) == 795.0
     table = matched_compressors("mlp", MNIST_SPEC, 199210)
-    assert sorted(table) == ["fedavg", "threesfc"]
+    assert sorted(table) == ["dgc", "fedavg", "signsgd", "stc", "threesfc"]
     assert table["threesfc"].syn_steps == 10
     strat = make_strategy(table["threesfc"], loss_fn=world["tmodel"].syn_loss,
                           syn_spec=world["tspec"])
@@ -232,19 +232,23 @@ def test_strategy_decode_aggregate_and_mask(world, encoded):
 
 def test_strategy_registry_and_unported_paths(world):
     from repro_torch.core import strategy as S
-    assert S.strategy_kinds() == ["identity", "threesfc"]
+    assert S.strategy_kinds() == ["identity", "signsgd", "stc", "threesfc",
+                                  "topk"]
     with pytest.raises(ValueError, match="already registered"):
         S.register_strategy("threesfc")(type("Dup", (S.CompressionStrategy,),
                                              {}))
-    with pytest.raises(ValueError, match="unknown compressor kind"):
-        make_strategy(CompressorConfig(kind="stc"))
+    # the accounted-only methods are not ported yet
+    for kind in ("randk", "fedsynth"):
+        with pytest.raises(ValueError, match="unknown compressor kind"):
+            make_strategy(CompressorConfig(kind=kind))
     ident = make_strategy(CompressorConfig(kind="identity",
                                            error_feedback=False))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ident.wire_codec(world["tparams"])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ident.wire_step(None, world["ttarget"], world["ttarget"],
-                        world["tparams"], codec=None)
+    codec = ident.wire_codec(world["tparams"])
+    assert codec.kind == "identity" and codec.strategy is ident
+    buf, e, m = ident.wire_step(None, world["ttarget"], world["ttarget"],
+                                world["tparams"], codec=codec)
+    assert buf.dtype == torch.uint8 and buf.numel() == codec.nbytes
+    assert e is world["ttarget"] and float(m.cosine) == 1.0
     with pytest.raises(ValueError, match="fused"):
         from repro_torch.configs.base import FLConfig
         from repro_torch.configs.run import RunConfig
