@@ -27,10 +27,29 @@ Phases, in order; any failure exits non-zero:
 7. times   — each kernel at the main path's shape (CUDA events), its plain
              version, a one-call PyTorch yardstick where one exists, its
              bound, and the wall and device time of one main-path round and
-             of one signSGD codec round.
+             of one signSGD codec round; B4 at the full prefill shape.
+8. B4      — ssd_chunk against its plain version on the card at (b, h, nc,
+             Q, P, N) = (2, 8, 2, 8, 32, 16) (the smoke config), (1, 32, 1,
+             32, 64, 128) (a prompt shorter than a chunk) and (4, 32, 16,
+             128, 64, 128) (the full prefill), with decays that
+             underflow, and at (2, 3, 2, 5, 8, 12) (Q off the thread
+             layout); each case twice, bitwise. Tiles off a 16-byte
+             boundary and P, N not multiples of 4 must be refused.
+9. serve   — ``repro_torch.launch.serve.main`` on mamba2-370m at full width
+             (48 layers, d_model 1024), batch 4, prompt 2048, 16 tokens,
+             ``--ssd-kernel``, with every counter set to 0 just before and
+             read just after: B4 must launch once per layer (48), B1-B3
+             never; then one more prefill (48 launches, profiled: wall time
+             and device busy share) and decode (0 launches).
+10. routes — full width cut to 2 layers, float32: the same params and
+             tokens (batch 2, prompt 256) through prefill with B4 on the
+             card, through ``ssd_scan`` on the card and on the CPU (the plain
+             versions), then 4 teacher-forced decode steps; logits and every
+             cache leaf must agree.
 
-The last lines are one JSON object with every kernel's numbers, the list of
-kernels, and ``{"ok": true, "device": {...}}``.
+The phases run in the order 1-6, 8-10, 7, so that the times can report each
+kernel's launches on its path. The last lines are one JSON object with every
+kernel's numbers, the list of kernels, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -48,7 +67,8 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 import torch  # noqa: E402
 
-from repro_torch.configs.base import CompressorConfig, FLConfig  # noqa: E402
+from repro_torch.configs.base import (CompressorConfig, FLConfig,  # noqa: E402
+                                     get_config)
 from repro_torch.configs.run import RunConfig  # noqa: E402
 from repro_torch.core import flat  # noqa: E402
 from repro_torch.core.strategy import make_strategy  # noqa: E402
@@ -59,8 +79,9 @@ from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import bitpack as bp_mod  # noqa: E402
 from repro_torch.kernels import ef_update as ef_mod  # noqa: E402
 from repro_torch.kernels import fused_cosine as fc_mod  # noqa: E402
-from repro_torch.launch import train  # noqa: E402
-from repro_torch.models.build import vision_syn_spec  # noqa: E402
+from repro_torch.kernels import ssd_chunk as ssd_mod  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.models.build import build_model, vision_syn_spec  # noqa: E402
 from repro_torch.models.cnn import MNIST_SPEC, make_mlp  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 non-tensor FLOP/s
@@ -78,6 +99,19 @@ B2_ULP = 2.4e-7      # of (|u| + |s·d|): one FMA rounding vs two roundings
 # the JAX package's fused-vs-float bounds (tests/test_fused_decode.py)
 PARAM_TOL = dict(rtol=1e-4, atol=1e-6)
 EF_TOL = dict(rtol=1e-4, atol=1e-5)
+# B4: (b, h, nc, Q, P, N) of the smoke config, a prompt shorter than one
+# chunk, and the full prefill (batch 4, prompt 2048 = 16 chunks of 128)
+B4_SHAPES = ((2, 8, 2, 8, 32, 16), (1, 32, 1, 32, 64, 128),
+             (4, 32, 16, 128, 64, 128))
+B4_FULL = B4_SHAPES[-1]
+# the reference's kernel-vs-oracle bound (tests/test_kernels.py)
+B4_TOL = dict(rtol=1e-4, atol=1e-5)
+# the serve main path and the model-level bound of
+# tests/test_pallas_model_path.py for the three routes
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 16
+SERVE_LAYERS = 48
+ROUTE_BATCH, ROUTE_PROMPT, ROUTE_LAYERS, ROUTE_DECODE = 2, 256, 2, 4
+ROUTE_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 def phase(name: str) -> None:
@@ -89,11 +123,18 @@ def reset_counts() -> None:
     ef_mod.LAUNCHES = 0
     for name in bp_mod.LAUNCHES:
         bp_mod.LAUNCHES[name] = 0
+    ssd_mod.LAUNCHES = 0
 
 
 def counts() -> dict:
     return {"fused_cosine": fc_mod.LAUNCHES, "ef_update": ef_mod.LAUNCHES,
-            **bp_mod.LAUNCHES}
+            **bp_mod.LAUNCHES, "ssd_chunk": ssd_mod.LAUNCHES}
+
+
+def only(**launches) -> dict:
+    """The launch counts of a run that launches ``launches`` and no other
+    kernel."""
+    return {**{k: 0 for k in counts()}, **launches}
 
 
 def to_cpu(tree):
@@ -265,8 +306,7 @@ def run_trainer(out_dir: str, compressor: str, wire: str):
 def phase_main_path(out_dir: str):
     phase("main path: repro_torch.launch.train.main")
     state, launched, wall = run_trainer(out_dir, "threesfc", "float")
-    want = {"fused_cosine": ROUNDS * N * (S + 1), "ef_update": ROUNDS * N,
-            "pack_signs": 0, "unpack_signs": 0}
+    want = only(fused_cosine=ROUNDS * N * (S + 1), ef_update=ROUNDS * N)
     if launched != want:
         raise AssertionError(f"launches {launched}, expected {want}")
     print(f"  {ROUNDS} rounds in {wall:.2f} s (first includes warm-up), "
@@ -352,16 +392,15 @@ def phase_codec_path(out_dir: str, float_state: FLState):
         os.path.join(out_dir, "signsgd"), "signsgd", "codec")
     # per client per round: one frame packed (B3a) and decoded (B3b), one
     # efficiency cosine (B1); EF is u − recon, no B2
-    want = {"fused_cosine": ROUNDS * N, "ef_update": 0,
-            "pack_signs": ROUNDS * N, "unpack_signs": ROUNDS * N}
+    want = only(fused_cosine=ROUNDS * N, pack_signs=ROUNDS * N,
+                unpack_signs=ROUNDS * N)
     if launched != want:
         raise AssertionError(f"signsgd codec launches {launched}, "
                              f"expected {want}")
     print(f"  signsgd: {ROUNDS} rounds in {wall:.2f} s, launches {launched}")
     sfc_state, sfc_launched, wall = run_trainer(
         os.path.join(out_dir, "threesfc"), "threesfc", "codec")
-    want = {"fused_cosine": ROUNDS * N * (S + 1), "ef_update": ROUNDS * N,
-            "pack_signs": 0, "unpack_signs": 0}
+    want = only(fused_cosine=ROUNDS * N * (S + 1), ef_update=ROUNDS * N)
     if sfc_launched != want:
         raise AssertionError(f"threesfc codec launches {sfc_launched}, "
                              f"expected {want}")
@@ -424,6 +463,210 @@ def phase_frames(dev) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: B4 against its plain version
+# ---------------------------------------------------------------------------
+
+
+def b4_inputs(g: torch.Generator, b, h, nc, Q, P, N, decay_scale=0.2):
+    """tests/test_kernels.py's distributions in the kernel layout:
+    xdt = 0.1·N(0,1), dA = −scale·softplus(N), B and C = 0.5·N."""
+    dev = g.device
+    xdt = 0.1 * torch.randn((b, h, nc, Q, P), generator=g, device=dev)
+    dA = -decay_scale * torch.nn.functional.softplus(
+        torch.randn((b, h, nc, Q), generator=g, device=dev))
+    B = 0.5 * torch.randn((b, nc, Q, N), generator=g, device=dev)
+    C = 0.5 * torch.randn((b, nc, Q, N), generator=g, device=dev)
+    return xdt, dA, B, C
+
+
+def check_b4(inputs, label: str) -> float:
+    """B4 twice (bitwise equal) against its plain version (elementwise
+    |got − want| <= atol + rtol·|want|); returns the largest |got − want|."""
+    got = ssd_mod.ssd_chunk(*inputs)
+    again = ssd_mod.ssd_chunk(*inputs)
+    want = ssd_mod.ssd_chunk_plain(*inputs)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name, g, a, w in zip(("y", "state", "decay"), got, again, want):
+        if not same_bits(g, a):
+            raise AssertionError(f"B4 {name} not bitwise repeatable at "
+                                 f"{label}")
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"B4 {name} not finite at {label}")
+        err = (g - w).abs()
+        bound = B4_TOL["atol"] + B4_TOL["rtol"] * w.abs()
+        if not bool((err <= bound).all()):
+            i = int(torch.argmax(err - bound))
+            raise AssertionError(
+                f"B4 {name} disagrees at {label}, element {i}: "
+                f"{float(g.reshape(-1)[i])} vs {float(w.reshape(-1)[i])}")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def phase_b4(dev) -> float:
+    phase("B4 ssd_chunk vs plain, on the card")
+    g = gen(dev, 19)
+    err_full = 0.0
+    for shape in B4_SHAPES:
+        err = check_b4(b4_inputs(g, *shape), f"{shape}")
+        print(f"  (b,h,nc,Q,P,N)={shape}: max_abs_err={err:.3e} "
+              f"(bitwise repeatable)")
+        if shape == B4_FULL:
+            err_full = err
+    for shape in (B4_SHAPES[0], B4_FULL):
+        err = check_b4(b4_inputs(g, *shape, decay_scale=30.0),
+                       f"{shape}, dA = -30 softplus")
+        print(f"  {shape} with decays that underflow (dA = -30 softplus): "
+              f"max_abs_err={err:.3e}")
+    # a Q that is no multiple of 4 or of the 8 x 32 thread layout (edge
+    # rows clamped) and narrow P, N; then operands the kernel does not take
+    odd = (2, 3, 2, 5, 8, 12)
+    err = check_b4(b4_inputs(g, *odd), f"{odd}")
+    print(f"  (b,h,nc,Q,P,N)={odd}: max_abs_err={err:.3e}")
+    shifted = [unaligned(t) for t in b4_inputs(g, *B4_SHAPES[0])]
+    refused = [(f"{B4_SHAPES[0]}, tiles off a 16-byte boundary", shifted,
+                "16-byte boundary"),
+               ("(2, 3, 2, 5, 6, 7)", b4_inputs(g, 2, 3, 2, 5, 6, 7),
+                "multiples of 4")]
+    for label, inputs, match in refused:
+        before = ssd_mod.LAUNCHES
+        try:
+            ssd_mod.ssd_chunk(*inputs)
+        except ValueError as e:
+            if match not in str(e):
+                raise
+        else:
+            raise AssertionError(f"B4 took {label}")
+        if ssd_mod.LAUNCHES != before:
+            raise AssertionError(f"B4 launched on {label}")
+        print(f"  {label}: refused by the wrapper")
+    return err_full
+
+
+def unaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` starting 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the serve main path through the entry point
+# ---------------------------------------------------------------------------
+
+
+def phase_serve():
+    phase("serve main path: repro_torch.launch.serve.main, mamba2-370m full "
+          "width, --ssd-kernel")
+    argv = ["--arch", "mamba2-370m", "--size", "full", "--batch",
+            str(SERVE_BATCH), "--prompt-len", str(SERVE_PROMPT), "--gen",
+            str(SERVE_GEN), "--ssd-kernel", "--device", "cuda"]
+    reset_counts()
+    res = serve.main(argv)
+    torch.cuda.synchronize()
+    launched = counts()
+    want = only(ssd_chunk=SERVE_LAYERS)
+    if launched != want:
+        raise AssertionError(f"serve launches {launched}, expected {want}")
+    if not bool(torch.isfinite(res.logits).all()):
+        raise AssertionError("non-finite logits")
+    if tuple(res.tokens.shape) != (SERVE_BATCH, SERVE_GEN):
+        raise AssertionError(f"tokens {tuple(res.tokens.shape)}")
+    if res.model.cfg != get_config("mamba2-370m").replace(
+            use_pallas_ssd=True):
+        raise AssertionError(f"not the full config: {res.model.cfg}")
+    steps = SERVE_GEN - 1
+    print(f"  launches {launched}; first prefill {res.prefill_s * 1e3:.3f} "
+          f"ms (cold), {steps} decode steps in {res.decode_s * 1e3:.3f} ms: "
+          f"{res.decode_s / steps * 1e3:.3f} ms per step, "
+          f"{SERVE_BATCH * steps / res.decode_s:.1f} tok/s")
+    reset_counts()
+    with torch.inference_mode():
+        # wall time of one prefill (median of 3), device time of one more
+        prof = round_profile(lambda: res.model.prefill(
+            res.params, res.prompt, SERVE_PROMPT + SERVE_GEN))
+    per_prefill = ssd_mod.LAUNCHES // 4      # 3 timed + 1 profiled
+    if ssd_mod.LAUNCHES != 4 * SERVE_LAYERS:
+        raise AssertionError(f"{ssd_mod.LAUNCHES} B4 launches in 4 "
+                             f"prefills, expected {4 * SERVE_LAYERS}")
+    print_profile(f"warm prefill (batch {SERVE_BATCH}, prompt "
+                  f"{SERVE_PROMPT})", prof)
+    with torch.inference_mode():
+        logits, cache, t = res.model.prefill(res.params, res.prompt,
+                                             SERVE_PROMPT + SERVE_GEN)
+        reset_counts()
+        tok = torch.argmax(logits, -1)
+        for i in range(steps):
+            logits, cache = res.model.decode_step(res.params, cache, tok,
+                                                  t + i)
+            tok = torch.argmax(logits, -1)
+    torch.cuda.synchronize()
+    if counts() != only():
+        raise AssertionError(f"decode launched kernels: {counts()}")
+    print(f"  B4 launches per prefill {per_prefill}, in {steps} decode "
+          f"steps 0")
+    return launched
+
+
+# ---------------------------------------------------------------------------
+# phase 10: kernel route vs ssd_scan on the card vs the CPU
+# ---------------------------------------------------------------------------
+
+
+def phase_routes(dev) -> None:
+    phase(f"routes: full width, {ROUTE_LAYERS} layers, float32: B4 on the "
+          f"card vs ssd_scan on the card vs the CPU")
+    cfg = get_config("mamba2-370m").replace(num_layers=ROUTE_LAYERS,
+                                            dtype="float32")
+    kernel_model = build_model(cfg.replace(use_pallas_ssd=True))
+    scan_model = build_model(cfg)
+    g = gen(dev, 23)
+    with torch.inference_mode():
+        params = kernel_model.init(g)
+        prompt = torch.randint(0, cfg.vocab_size, (ROUTE_BATCH, ROUTE_PROMPT),
+                               generator=g, device=dev)
+        params_cpu = to_cpu(params)
+        routes = {"B4 on the card": (kernel_model, params, prompt),
+                  "ssd_scan on the card": (scan_model, params, prompt),
+                  "CPU": (kernel_model, params_cpu, prompt.cpu())}
+        cache_len = ROUTE_PROMPT + ROUTE_DECODE
+        state = {}
+        for name, (model, p, tk) in routes.items():
+            reset_counts()
+            logits, cache, t = model.prefill(p, tk, cache_len)
+            torch.cuda.synchronize()
+            want = ROUTE_LAYERS if name == "B4 on the card" else 0
+            if ssd_mod.LAUNCHES != want:
+                raise AssertionError(f"{name}: {ssd_mod.LAUNCHES} B4 "
+                                     f"launches, expected {want}")
+            state[name] = (logits, cache)
+        ref_logits, ref_cache = state["CPU"]
+        for name in ("B4 on the card", "ssd_scan on the card"):
+            assert_close(f"prefill logits, {name} vs CPU", state[name][0],
+                         ref_logits, ROUTE_TOL)
+            assert_close(f"prefill cache, {name} vs CPU", state[name][1],
+                         ref_cache, ROUTE_TOL)
+        # teacher-forced decode: every route is fed the CPU's greedy token
+        for i in range(ROUTE_DECODE):
+            tok = torch.argmax(state["CPU"][0], -1)
+            for name, (model, p, _) in routes.items():
+                logits, cache = model.decode_step(
+                    p, state[name][1], tok.to(p["embed"]["table"].device),
+                    ROUTE_PROMPT + i)
+                state[name] = (logits, cache)
+            for name in ("B4 on the card", "ssd_scan on the card"):
+                assert_close(f"decode step {i} logits, {name} vs CPU",
+                             state[name][0], state["CPU"][0], ROUTE_TOL)
+                assert_close(f"decode step {i} cache, {name} vs CPU",
+                             state[name][1], state["CPU"][1], ROUTE_TOL)
+    for name, (logits, _) in state.items():
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{name}: non-finite logits")
+
+
+# ---------------------------------------------------------------------------
 # phase 7: times
 # ---------------------------------------------------------------------------
 
@@ -483,7 +726,8 @@ def bound_ms(nbytes: int, flops: int) -> tuple:
 
 
 KERNEL_NAMES = ("fused_cosine_partials", "fused_cosine_finish",
-                "ef_update_kernel", "pack_signs_kernel", "unpack_signs_kernel")
+                "ef_update_kernel", "pack_signs_kernel", "unpack_signs_kernel",
+                "ssd_chunk_kernel")
 
 
 def round_profile(one_round) -> dict:
@@ -524,17 +768,62 @@ def print_profile(label: str, prof: dict) -> None:
     busy = (f"{prof['round_device_ms']:.3f} ms, busy share "
             f"{prof['round_device_ms'] / prof['round_wall_ms']:.4f}"
             if prof["round_device_ms"] else "not measured")
-    print(f"  {label} (N={N}, K={K}, B={B}): wall "
-          f"{prof['round_wall_ms']:.3f} ms (median of 3), device kernel "
-          f"time {busy}")
+    print(f"  {label}: wall {prof['round_wall_ms']:.3f} ms (median of 3), "
+          f"device kernel time {busy}")
     for name, (t, cnt) in sorted(prof["per_kernel_us"].items()):
         print(f"    {name}: {cnt} launches, {t / cnt:.3f} us each")
     for t, key, cnt in prof["top"]:
         print(f"    top: {t / 1e3:.3f} ms  {cnt:5d}x  {key[:90]}")
 
 
+def b4_flops(b, h, nc, Q, P, N) -> int:
+    """The f32 operations B4's outputs need: C·Bᵀ once per (b, chunk) over
+    its lower triangle (B and C are shared by the heads); per cell, L's
+    lower triangle (cs_i − cs_j, exp, ⊙ C·Bᵀ), S·xdt over the lower
+    triangle, xdt ⊙ w and the dense state product, the cumsum and the
+    exps of w and decay."""
+    tri = Q * (Q + 1) // 2
+    per_cell = (3 * tri + 2 * P * tri + Q * P + 2 * Q * P * N + 4 * Q)
+    return b * nc * 2 * N * tri + b * h * nc * per_cell
+
+
+def b4_time_row(dev, launched: int, err: float) -> dict:
+    """B4 at the full prefill shape: the kernel in a CUDA graph and eagerly,
+    its plain version, and its bound from the shapes (no single PyTorch
+    call gives the three outputs: no library time)."""
+    b, h, nc, Q, P, N = B4_FULL
+    inputs = b4_inputs(gen(dev, 29), *B4_FULL)
+    kern = lambda: ssd_mod.ssd_chunk(*inputs)
+    plain = lambda: ssd_mod.ssd_chunk_plain(*inputs)
+    cells = b * h * nc
+    # each input read once, each output written once (B and C once per
+    # (b, chunk))
+    nbytes = 4 * (cells * (Q * P + Q) + 2 * b * nc * Q * N
+                  + cells * (Q * P + P * N + Q))
+    flops = b4_flops(b, h, nc, Q, P, N)
+    # the dense per-cell work of the TPU kernel and of this one, printed
+    # beside the bound but not used for it
+    dense = cells * (2 * Q * Q * N + 2 * Q * Q * P + 2 * Q * P * N)
+    kern_ms = graph_ms(kern, reps=20, replays=11)
+    eager_ms = call_ms(kern, reps=50)
+    plain_ms = graph_ms(plain, reps=20, replays=11)
+    b_ms, b_by = bound_ms(nbytes, flops)
+    print(f"  ssd_chunk at (b,h,nc,Q,P,N)={B4_FULL}: kernel_ms={kern_ms:.6f} "
+          f"(eager call {eager_ms:.6f}) bound_ms={b_ms:.6f} ({b_by}; "
+          f"{nbytes} B, {flops} FLOP; the dense work, {dense} FLOP, would "
+          f"take {bound_ms(nbytes, dense)[0]:.6f} ms) plain_ms={plain_ms:.6f} "
+          f"library_ms=none launches_per_prefill={SERVE_LAYERS}")
+    return {"name": "ssd_chunk", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+            "replaces": "src/repro/kernels/ssd_chunk.py:57",
+            "launches": launched, "max_abs_err": err, "ms": kern_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "call_ms": eager_ms,
+            "launches_per_prefill": SERVE_LAYERS}
+
+
 def phase_times(dev, launched, errs, rounds):
-    """``launched`` holds each kernel's launches on its path's trainer run;
+    """``launched`` holds each kernel's launches on its path's run;
     ``rounds`` is [(label, one_round)] to profile."""
     phase("times at the main path's shape")
     g = gen(dev, 13)
@@ -590,6 +879,7 @@ def phase_times(dev, launched, errs, rounds):
                      "bound_by": b_by, "library_ms": library_ms,
                      "call_ms": eager_ms,
                      "launches_per_round": per_round})
+    rows.append(b4_time_row(dev, launched["ssd_chunk"], errs["ssd_chunk"]))
     for label, one_round in rounds:
         print_profile(label, round_profile(one_round))
     return rows
@@ -634,13 +924,18 @@ def main() -> int:
         float_round, batches, syn0 = phase_fused(state, dev)
         sign_state, codec_launched = phase_codec_path(out_dir, state)
     phase_frames(dev)
+    errs["ssd_chunk"] = phase_b4(dev)
+    serve_launched = phase_serve()
+    phase_routes(dev)
     launched = {**launched, "pack_signs": codec_launched["pack_signs"],
-                "unpack_signs": codec_launched["unpack_signs"]}
+                "unpack_signs": codec_launched["unpack_signs"],
+                "ssd_chunk": serve_launched["ssd_chunk"]}
     sign_round = sign_codec_round(sign_state)
     rows = phase_times(dev, launched, errs, [
-        (f"main-path round (S={S})",
+        (f"main-path round (S={S}, N={N}, K={K}, B={B})",
          lambda: float_round(state, batches, 0, syn0=syn0)),
-        ("signSGD codec round", lambda: sign_round(sign_state, batches, 0)),
+        (f"signSGD codec round (N={N}, K={K}, B={B})",
+         lambda: sign_round(sign_state, batches, 0)),
     ])
 
     print(card)

@@ -1,12 +1,90 @@
-"""FL and compressor configuration: the paper's knobs.
+"""Model, FL and compressor configuration, and the architecture registry.
 
-A copy of ``CompressorConfig`` and ``FLConfig`` from the JAX package's
-``configs/base.py``, field for field, so a run's configuration reads the
-same in both packages.
+A copy of ``ModelConfig``, ``CompressorConfig`` and ``FLConfig`` from the
+JAX package's ``configs/base.py``, field for field, so a run's
+configuration reads the same in both packages. Every architecture of
+``ARCH_IDS`` whose model is ported has a module in this package defining
+``CONFIG`` (full size) and ``smoke_config()`` (the reduced CPU-test
+variant); ``get_config``/``get_smoke_config`` resolve dash or underscore
+ids and raise ``NotImplementedError`` for an architecture not ported yet.
 """
 from __future__ import annotations
 
+import dataclasses
+import importlib
+import importlib.util
 from dataclasses import dataclass, field
+from typing import Tuple
+
+# ---------------------------------------------------------------------------
+# Model config
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # dense | moe | ssm | hybrid | encdec | vlm | audio
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                # 0 -> d_model // num_heads
+    qkv_bias: bool = False
+    # --- MoE ---
+    num_experts: int = 0
+    experts_per_token: int = 0
+    shared_experts: int = 0          # always-on shared expert count (llama4: 1, moonlight: 2)
+    moe_aux_coef: float = 0.01
+    capacity_factor: float = 1.25
+    # --- SSM (mamba2 / SSD) ---
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 64
+    conv_width: int = 4
+    use_pallas_ssd: bool = False     # route the SSD inner chunk through the
+                                     # hand-written kernel (B4, ``ssd_chunk``)
+    # --- hybrid block pattern, repeated to cover num_layers ---
+    # entries: "attn" (attention + FFN), "ssm" (mamba2 mixer), "rec" (RG-LRU + FFN)
+    block_pattern: Tuple[str, ...] = ("attn",)
+    rnn_width: int = 0               # RG-LRU recurrent width (0 -> d_model)
+    # --- attention ---
+    rope_theta: float = 10000.0
+    attn_window: int = 0             # 0 = full causal; >0 = sliding window
+    # --- encoder-decoder ---
+    enc_layers: int = 0              # >0 -> enc-dec model (num_layers = decoder)
+    # --- multimodal frontend stub ---
+    modality: str = "text"           # text | vision | audio
+    num_mm_tokens: int = 0           # stub patch/frame embeddings prepended
+    # --- numerics ---
+    param_dtype: str = "float32"
+    dtype: str = "bfloat16"          # activation/compute dtype
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    # --- scan/remat ---
+    remat: bool = True
+    source: str = ""                 # citation
+
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // self.num_heads if self.num_heads else 0
+
+    @property
+    def pattern_for(self) -> Tuple[str, ...]:
+        return self.block_pattern
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# FL / compressor config (the paper's knobs)
+# ---------------------------------------------------------------------------
 
 
 @dataclass(frozen=True)
@@ -41,3 +119,45 @@ class FLConfig:
     aggregation: str = "mean"        # mean | weighted
     compressor: CompressorConfig = field(default_factory=CompressorConfig)
     seed: int = 0
+
+
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
+
+ARCH_IDS = [
+    "seamless-m4t-medium",
+    "mamba2-370m",
+    "mistral-nemo-12b",
+    "internvl2-1b",
+    "tinyllama-1.1b",
+    "qwen3-moe-30b-a3b",
+    "moonshot-v1-16b-a3b",
+    "llama4-scout-17b-a16e",
+    "qwen1.5-0.5b",
+    "recurrentgemma-2b",
+]
+
+
+def _module_name(arch_id: str) -> str:
+    return arch_id.replace("-", "_").replace(".", "_")
+
+
+def _config_module(arch_id: str):
+    ids = {_module_name(a): a for a in ARCH_IDS}
+    name = _module_name(arch_id)
+    if name not in ids:
+        raise ValueError(f"unknown arch {arch_id!r}; one of {ARCH_IDS}")
+    full = f"repro_torch.configs.{name}"
+    if importlib.util.find_spec(full) is None:
+        raise NotImplementedError(
+            f"arch {ids[name]!r} is not ported yet, see ROADMAP.md")
+    return importlib.import_module(full)
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    return _config_module(arch_id).CONFIG
+
+
+def get_smoke_config(arch_id: str) -> ModelConfig:
+    return _config_module(arch_id).smoke_config()

@@ -7,6 +7,9 @@
   is written in torch ops).
 * ``tree_ef_update(u, d, s)`` — the EF residual ``u − s·d`` over whole trees
   through kernel B2 (``kernels.ef_update``), never materializing ``s·d``.
+* ``ssd_chunked`` / ``ssd_chunked_ad`` — the Mamba2 SSD scan with its
+  intra-chunk step in kernel B4 (``kernels.ssd_chunk``), the contract of
+  ``models.ssm.ssd_scan``; the inter-chunk recurrence stays outside.
 
 Both tree forms stream the leaves in lockstep chunks of at most
 ``TREE_CHUNK_ELEMS`` elements, and each chunk is one kernel launch.
@@ -18,13 +21,14 @@ read, as in the reference, which concatenates the same way.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.core.tree import PyTree, tree_flatten, tree_unflatten
 from repro_torch.kernels import ef_update as _ef
 from repro_torch.kernels import fused_cosine as _fc
+from repro_torch.kernels import ssd_chunk as _ssd
 
 # Per-chunk element budget for the tree-streaming reductions: 4 Mi elements
 # = 16 MiB f32 per operand.
@@ -209,3 +213,81 @@ def tree_ef_update(u_tree: PyTree, d_tree: PyTree, s) -> PyTree:
         for ps, l in zip(pieces, u_leaves)
     ]
     return tree_unflatten(treedef, new_leaves)
+
+
+# ---------------------------------------------------------------------------
+# ssd_chunk (B4; used by models.ssm when use_pallas_ssd, oracle ssd_scan)
+# ---------------------------------------------------------------------------
+
+
+def ssd_chunked(xdt: torch.Tensor, dA: torch.Tensor, Bc: torch.Tensor,
+                Cc: torch.Tensor, chunk: int,
+                h0: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Same contract as ``models.ssm.ssd_scan``, with the intra-chunk math in
+    kernel B4. xdt (b,s,h,p); dA (b,s,h); B, C (b,s,n); ``s`` must divide
+    by ``min(chunk, s)``. Returns (y (b,s,h,p), final state (b,h,p,n)) in
+    xdt's dtype; the kernel and the recurrence run in f32."""
+    b, s, h, pdim = xdt.shape
+    n = Bc.shape[-1]
+    Q = min(chunk, s)
+    if s % Q:
+        raise ValueError(f"ssd_chunked needs the sequence ({s}) to divide by "
+                         f"min(chunk, s) = {Q}; ssd_scan pads, this does not")
+    nc = s // Q
+    f32 = torch.float32
+    # kernel layout: (b, h, nc, Q, ...)
+    xk = torch.movedim(xdt.reshape(b, nc, Q, h, pdim), 3, 1)     # (b,h,nc,Q,P)
+    dAk = torch.movedim(dA.reshape(b, nc, Q, h), 3, 1)           # (b,h,nc,Q)
+    Bk = Bc.reshape(b, nc, Q, n).to(f32).contiguous()
+    Ck = Cc.reshape(b, nc, Q, n).to(f32).contiguous()
+    y_diag, states, decay = _ssd.ssd_chunk(
+        xk.to(f32).contiguous(), dAk.to(f32).contiguous(), Bk, Ck)
+    # inter-chunk recurrence (short and sequential): the state entering
+    # chunk c is prev[:, :, c]
+    chunk_decay = decay[..., -1]                                 # (b,h,nc)
+    carry = (torch.zeros((b, h, pdim, n), dtype=f32, device=xdt.device)
+             if h0 is None else h0.to(f32))
+    prev = torch.empty_like(states)                              # (b,h,nc,P,N)
+    for c in range(nc):
+        prev[:, :, c] = carry
+        carry = states[:, :, c] + chunk_decay[:, :, c, None, None] * carry
+    y_off = torch.einsum("bcqn,bhcpn->bhcqp", Ck, prev) * decay[..., None]
+    y = y_diag + y_off                                           # (b,h,nc,Q,P)
+    y = torch.movedim(y, 1, 3).reshape(b, s, h, pdim)
+    return y.to(xdt.dtype), carry.to(xdt.dtype)
+
+
+class _SSDChunkedAD(torch.autograd.Function):
+    """Forward through kernel B4 (``ssd_chunked``); backward through autograd
+    of the plain ``models.ssm.ssd_scan``, the reference's VJP (the JAX
+    package has no backward kernel for B4, so neither has the port)."""
+
+    @staticmethod
+    def forward(ctx, xdt, dA, Bc, Cc, h0, chunk):
+        ctx.chunk = chunk
+        ctx.save_for_backward(xdt, dA, Bc, Cc, h0)
+        return ssd_chunked(xdt, dA, Bc, Cc, chunk, h0)
+
+    @staticmethod
+    def backward(ctx, gy, gfinal):
+        from repro_torch.models.ssm import ssd_scan
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[:5]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(bool(nd))
+                      for t, nd in zip(saved, need)]
+            y, final = ssd_scan(*inputs[:4], ctx.chunk, inputs[4])
+            wrt = [t for t, nd in zip(inputs, need) if nd]
+            grads = iter(torch.autograd.grad((y, final), wrt, (gy, gfinal)))
+        return (*[next(grads) if nd else None for nd in need], None)
+
+
+def ssd_chunked_ad(xdt: torch.Tensor, dA: torch.Tensor, Bc: torch.Tensor,
+                   Cc: torch.Tensor, chunk: int, h0: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable ``ssd_chunked``: forward through the kernel, backward
+    through autograd of ``ssd_scan`` (forward parity is held in
+    tests/test_torch_ssm.py, so the gradients are consistent). ``h0`` is a
+    tensor, as in the reference's ``custom_vjp``."""
+    return _SSDChunkedAD.apply(xdt, dA, Bc, Cc, h0, chunk)

@@ -1,0 +1,263 @@
+"""Decoder-only LM: the serving path of the SSM family.
+
+Layers are grouped into *periods* = one repetition of ``cfg.block_pattern``
+(uniform archs: pattern ("ssm",) -> period == layer). Period params carry a
+leading ``n_periods`` axis, in the JAX package's layout (``"layers"``, keyed
+``"0"``…), so its ``LM.init`` tree loads unchanged; here the periods run as
+a Python loop over that axis. A non-divisible remainder becomes ``tail``
+blocks.
+
+Big-vocab discipline: prefill projects only the last position and decode a
+single token, so the (B, S, V) logits never materialize.
+
+Ported: the ``"ssm"`` blocks (mamba2), ``init``, ``forward_hidden``,
+``init_cache``, ``prefill`` and ``decode_step``. The ``"attn"`` and
+``"rec"`` blocks, ``loss`` and ``syn_loss`` raise "not ported yet"
+(ROADMAP.md).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.tree import tree_map
+from repro_torch.models import layers
+from repro_torch.models import params as P_
+from repro_torch.models import ssm as ssm_mod
+
+PyTree = Any
+
+_NOT_PORTED = "not ported yet, see ROADMAP.md"
+
+
+# ---------------------------------------------------------------------------
+# pattern helpers
+# ---------------------------------------------------------------------------
+
+
+def pattern_layout(cfg: ModelConfig
+                   ) -> Tuple[Tuple[str, ...], int, Tuple[str, ...]]:
+    """(pattern, n_periods, tail_pattern)."""
+    pat = tuple(cfg.block_pattern)
+    n_periods = cfg.num_layers // len(pat)
+    tail = pat[: cfg.num_layers % len(pat)]
+    return pat, n_periods, tail
+
+
+def _block_error(btype: str) -> Exception:
+    if btype in ("attn", "rec"):
+        return NotImplementedError(f"block type {btype!r} is {_NOT_PORTED}")
+    return ValueError(f"unknown block type {btype!r}")
+
+
+# ---------------------------------------------------------------------------
+# block init / forward / cache / prefill / decode
+# ---------------------------------------------------------------------------
+
+
+def _block_init(gen: torch.Generator, cfg: ModelConfig, btype: str,
+                dtype) -> Dict:
+    if btype == "ssm":
+        dims = ssm_mod.SSMDims.from_cfg(cfg)
+        return {"ln1": layers.rmsnorm_init(cfg.d_model, dtype, gen.device),
+                "ssm": ssm_mod.ssm_init(gen, dims, dtype)}
+    raise _block_error(btype)
+
+
+def _block_forward(cfg: ModelConfig, btype: str, p: Dict, x: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward. Returns (x, aux_loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if btype == "ssm":
+        dims = ssm_mod.SSMDims.from_cfg(cfg)
+        y, _ = ssm_mod.ssm_forward(
+            p["ssm"], layers.rmsnorm(p["ln1"], x, cfg.norm_eps), dims)
+        return x + y, aux
+    raise _block_error(btype)
+
+
+def _block_cache(cfg: ModelConfig, btype: str, batch: int, cache_len: int,
+                 dtype, device):
+    if btype == "ssm":
+        return ssm_mod.init_ssm_cache(batch, ssm_mod.SSMDims.from_cfg(cfg),
+                                      dtype, device)
+    raise _block_error(btype)
+
+
+def _block_prefill(cfg: ModelConfig, btype: str, p: Dict, x: torch.Tensor,
+                   cache_len: int):
+    """Full forward + populated cache for this block."""
+    if btype == "ssm":
+        dims = ssm_mod.SSMDims.from_cfg(cfg)
+        xin = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
+        y, final = ssm_mod.ssm_forward(p["ssm"], xin, dims)
+        # conv buffer = the last (width-1) conv inputs, before the conv
+        _, xc, Bc, Cc, _ = ssm_mod._split_proj(
+            p["ssm"], xin[:, -(dims.conv_width - 1):, :], dims)
+        buf = torch.cat([xc, Bc, Cc], dim=-1).to(final.dtype)
+        return x + y, ssm_mod.SSMCache(buf, final)
+    raise _block_error(btype)
+
+
+def _block_decode(cfg: ModelConfig, btype: str, p: Dict, x_t: torch.Tensor,
+                  cache, t):
+    if btype == "ssm":
+        dims = ssm_mod.SSMDims.from_cfg(cfg)
+        y, cache = ssm_mod.ssm_decode_step(
+            p["ssm"], layers.rmsnorm(p["ln1"], x_t, cfg.norm_eps), cache,
+            dims)
+        return x_t + y, cache
+    raise _block_error(btype)
+
+
+def _index(tree: PyTree, i: int) -> PyTree:
+    """Period ``i`` of a tree stacked on a leading axis (views)."""
+    return tree_map(lambda t: t[i], tree)
+
+
+# ---------------------------------------------------------------------------
+# model
+# ---------------------------------------------------------------------------
+
+
+class LM:
+    """Functional decoder-only LM facade bound to a ModelConfig."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.pattern, self.n_periods, self.tail = pattern_layout(cfg)
+        self.param_dtype = P_.dtype_of(cfg.param_dtype)
+        self.dtype = P_.dtype_of(cfg.dtype)
+
+    # ---- init -------------------------------------------------------------
+
+    def init(self, gen: torch.Generator) -> PyTree:
+        """Fresh params drawn from ``gen``, on the generator's device."""
+        cfg = self.cfg
+
+        def period_init(g):
+            return {str(i): _block_init(g, cfg, bt, self.param_dtype)
+                    for i, bt in enumerate(self.pattern)}
+
+        params = {
+            "embed": layers.embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                       self.param_dtype),
+            "layers": P_.stack_init(period_init, gen, self.n_periods),
+            "final_norm": layers.rmsnorm_init(cfg.d_model, self.param_dtype,
+                                              gen.device),
+        }
+        if self.tail:
+            params["tail"] = {str(i): _block_init(gen, cfg, bt,
+                                                  self.param_dtype)
+                              for i, bt in enumerate(self.tail)}
+        if not cfg.tie_embeddings:
+            params["lm_head"] = layers.lm_head_init(
+                gen, cfg.d_model, cfg.vocab_size, self.param_dtype)
+        return params
+
+    # ---- shared trunk -----------------------------------------------------
+
+    def _trunk(self, params: PyTree, x: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, S, d) -> (hidden (B, S, d), aux). One loop over periods."""
+        cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for l in range(self.n_periods):
+            pp = _index(params["layers"], l)
+            for i, bt in enumerate(self.pattern):
+                x, a = _block_forward(cfg, bt, pp[str(i)], x)
+                aux = aux + a
+        for i, bt in enumerate(self.tail):
+            x, a = _block_forward(cfg, bt, params["tail"][str(i)], x)
+            aux = aux + a
+        x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        return x, aux
+
+    def _logits(self, params: PyTree, h: torch.Tensor) -> torch.Tensor:
+        if self.cfg.tie_embeddings:
+            return layers.unembed(params["embed"], h)
+        return layers.lm_head(params["lm_head"], h)
+
+    def embed_tokens(self, params: PyTree, tokens: torch.Tensor
+                     ) -> torch.Tensor:
+        return layers.embed(params["embed"], tokens, self.dtype)
+
+    def forward_hidden(self, params: PyTree, tokens: torch.Tensor,
+                       prefix_embeds: Optional[torch.Tensor] = None):
+        x = self.embed_tokens(params, tokens)
+        if prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+        return self._trunk(params, x)
+
+    def loss(self, params: PyTree, batch) -> torch.Tensor:
+        raise NotImplementedError(f"LM.loss is {_NOT_PORTED}")
+
+    def syn_loss(self, params: PyTree, syn) -> torch.Tensor:
+        raise NotImplementedError(f"LM.syn_loss is {_NOT_PORTED}")
+
+    # ---- serving ----------------------------------------------------------
+
+    def init_cache(self, batch: int, cache_len: int, dtype=torch.bfloat16,
+                   device=None) -> PyTree:
+        cfg = self.cfg
+        period = {str(i): _block_cache(cfg, bt, batch, cache_len, dtype,
+                                       device)
+                  for i, bt in enumerate(self.pattern)}
+        cache = {"layers": tree_map(
+            lambda x: x.expand(self.n_periods, *x.shape).clone(), period)}
+        if self.tail:
+            cache["tail"] = {str(i): _block_cache(cfg, bt, batch, cache_len,
+                                                  dtype, device)
+                             for i, bt in enumerate(self.tail)}
+        return cache
+
+    def prefill(self, params: PyTree, tokens: torch.Tensor, cache_len: int,
+                prefix_embeds: Optional[torch.Tensor] = None):
+        """Returns (last-token logits (B, V), cache, t0)."""
+        cfg = self.cfg
+        x = self.embed_tokens(params, tokens)
+        if prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+        per_period = []
+        for l in range(self.n_periods):
+            pp = _index(params["layers"], l)
+            caches = {}
+            for i, bt in enumerate(self.pattern):
+                x, caches[str(i)] = _block_prefill(cfg, bt, pp[str(i)], x,
+                                                   cache_len)
+            per_period.append(caches)
+        cache = {"layers": P_.stack_trees(per_period)}
+        if self.tail:
+            cache["tail"] = {}
+            for i, bt in enumerate(self.tail):
+                x, cache["tail"][str(i)] = _block_prefill(
+                    cfg, bt, params["tail"][str(i)], x, cache_len)
+        x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        logits = self._logits(params, x[:, -1, :])
+        return logits, cache, x.shape[1]
+
+    def decode_step(self, params: PyTree, cache: PyTree,
+                    token: torch.Tensor, t):
+        """token (B,) int, t position. Returns (logits (B, V), cache)."""
+        cfg = self.cfg
+        x_t = layers.embed(params["embed"], token, self.dtype)
+        per_period = []
+        for l in range(self.n_periods):
+            pp = _index(params["layers"], l)
+            pc = _index(cache["layers"], l)
+            new_c = {}
+            for i, bt in enumerate(self.pattern):
+                x_t, new_c[str(i)] = _block_decode(cfg, bt, pp[str(i)], x_t,
+                                                   pc[str(i)], t)
+            per_period.append(new_c)
+        new_cache = {"layers": P_.stack_trees(per_period)}
+        if self.tail:
+            new_cache["tail"] = {}
+            for i, bt in enumerate(self.tail):
+                x_t, new_cache["tail"][str(i)] = _block_decode(
+                    cfg, bt, params["tail"][str(i)], x_t,
+                    cache["tail"][str(i)], t)
+        x_t = layers.rmsnorm(params["final_norm"], x_t, cfg.norm_eps)
+        return self._logits(params, x_t), new_cache
