@@ -26,8 +26,9 @@ Phases, in order; any failure exits non-zero:
              at the MLP's shapes, on the card and on the CPU, byte for byte.
 7. times   — each kernel at the main path's shape (CUDA events), its plain
              version, a one-call PyTorch yardstick where one exists, its
-             bound, and the wall and device time of one main-path round and
-             of one signSGD codec round; B4 at the full prefill shape.
+             bound, and the wall and device time of one main-path round, of
+             one signSGD codec round and of one FedSynth round; B4 at the
+             full prefill shape; B5 and B6 at n = 199,210 and 4 Mi + 5.
 8. B4      — ssd_chunk against its plain version on the card at (b, h, nc,
              Q, P, N) = (2, 8, 2, 8, 32, 16) (the smoke config), (1, 32, 1,
              32, 64, 128) (a prompt shorter than a chunk) and (4, 32, 16,
@@ -46,13 +47,31 @@ Phases, in order; any failure exits non-zero:
              card, through ``ssd_scan`` on the card and on the CPU (the plain
              versions), then 4 teacher-forced decode steps; logits and every
              cache leaf must agree.
+11. B5, B6 — sign_quant and topk_mask against their plain versions on the
+             card at lengths 0, 1, 31, 1023, 1024, 1025, 199,210 and 4 Mi + 5
+             (±subnormals, ±0 and values at τ planted), on every leaf of the
+             MLP and on an unaligned view, at τ = 0, 1e-39, 1e-38, FLT_MIN and
+             the sampled thresholds of k = 1% and 10%: signs, masks and
+             counts bitwise, the scale within rtol 1e-5 and bitwise
+             repeatable; ``topk_threshold`` on the card equal to the CPU's.
+12. compressors — the compressor library at the MLP's full width on a
+             client update from the trainer's state: ``make_compressor`` for
+             identity, topk, randk, signsgd and stc and the flat
+             ``ef_step`` over 3 steps (EF telescoping), then the B5/B6 front
+             end against ``baselines.signsgd_compress`` and
+             ``baselines.topk_compress``, one B5 or B6 launch per call.
+13. accounted-only rounds — randk and FedSynth rounds through
+             ``build_fl_round`` (N=10, K=5, B=32, float mode, EF on, 3
+             rounds): N B1 launches per round and no other kernel; one
+             FedSynth round on the card against the same round on the CPU.
 
-The phases run in the order 1-6, 8-10, 7, so that the times can report each
+The phases run in the order 1-6, 8-13, 7, so that the times can report each
 kernel's launches on its path. The last lines are one JSON object with every
 kernel's numbers, the list of kernels, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -70,16 +89,22 @@ import torch  # noqa: E402
 from repro_torch.configs.base import (CompressorConfig, FLConfig,  # noqa: E402
                                      get_config)
 from repro_torch.configs.run import RunConfig  # noqa: E402
-from repro_torch.core import flat  # noqa: E402
-from repro_torch.core.strategy import make_strategy  # noqa: E402
+from repro_torch.core import baselines, flat  # noqa: E402
+from repro_torch.core import error_feedback as ef  # noqa: E402
+from repro_torch.core.compressor import make_compressor  # noqa: E402
+from repro_torch.core.strategy import leaf_k, make_strategy  # noqa: E402
 from repro_torch.core.threesfc import SynData, init_syn  # noqa: E402
 from repro_torch.fl.budget import matched_compressors  # noqa: E402
+from repro_torch.fl.client import local_train  # noqa: E402
 from repro_torch.fl.round import FLState, build_fl_round  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import bitpack as bp_mod  # noqa: E402
 from repro_torch.kernels import ef_update as ef_mod  # noqa: E402
 from repro_torch.kernels import fused_cosine as fc_mod  # noqa: E402
+from repro_torch.kernels import sign_quant as sq_mod  # noqa: E402
 from repro_torch.kernels import ssd_chunk as ssd_mod  # noqa: E402
+from repro_torch.kernels import topk_mask as tm_mod  # noqa: E402
+from repro_torch.kernels.ftz import FLT_MIN, flush_subnormal  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models.build import build_model, vision_syn_spec  # noqa: E402
 from repro_torch.models.cnn import MNIST_SPEC, make_mlp  # noqa: E402
@@ -112,6 +137,17 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 16
 SERVE_LAYERS = 48
 ROUTE_BATCH, ROUTE_PROMPT, ROUTE_LAYERS, ROUTE_DECODE = 2, 256, 2, 4
 ROUTE_TOL = dict(rtol=1e-4, atol=1e-4)
+# B5/B6: phase 11's lengths, the reference's scale bound
+# (tests/test_kernels.py), and ±subnormals, ±0, FLT_MIN and values at τ
+B56_LENGTHS = (0, 1, 31, 1023, 1024, 1025, MLP_D, (1 << 22) + 5)
+B5_RTOL = 1e-5
+EDGE = (1e-40, -1e-40, -3e-39, 0.5, -0.25, 0.0, -0.0, FLT_MIN, -FLT_MIN,
+        1e-38, -1e-38, 0.25, -0.5, 2.0, 1e-39, 0.125)
+EDGE_TAUS = (0.0, 1e-39, 1e-38, FLT_MIN)
+EF_STEPS = 3
+# vectors of 4 Mi + 5 elements the B5/B6 timing rotates over: 6 x 16.8 MB
+# of inputs, twice the H100's 50 MB L2
+L2_ROTATE = 6
 
 
 def phase(name: str) -> None:
@@ -124,11 +160,14 @@ def reset_counts() -> None:
     for name in bp_mod.LAUNCHES:
         bp_mod.LAUNCHES[name] = 0
     ssd_mod.LAUNCHES = 0
+    sq_mod.LAUNCHES = 0
+    tm_mod.LAUNCHES = 0
 
 
 def counts() -> dict:
     return {"fused_cosine": fc_mod.LAUNCHES, "ef_update": ef_mod.LAUNCHES,
-            **bp_mod.LAUNCHES, "ssd_chunk": ssd_mod.LAUNCHES}
+            **bp_mod.LAUNCHES, "ssd_chunk": ssd_mod.LAUNCHES,
+            "sign_quant": sq_mod.LAUNCHES, "topk_mask": tm_mod.LAUNCHES}
 
 
 def only(**launches) -> dict:
@@ -243,17 +282,20 @@ def phase_kernels(dev) -> dict:
     x = torch.randn(1027, generator=g, device=dev)
     check_b3(x[3:])                          # an unaligned view
     print(f"  B3 pack_signs/unpack_signs bitwise at n={B3_LENGTHS} and an "
-          f"unaligned view, with 0.0, -0.0, NaN, +inf, -inf planted")
+          f"unaligned view, with 0.0, -0.0, NaN, +inf, -inf, ±subnormals and "
+          f"-FLT_MIN planted")
     return {"fused_cosine": err_b1, "ef_update": err_b2,
             "pack_signs": 0.0, "unpack_signs": 0.0}
 
 
 def check_b3(x: torch.Tensor) -> None:
     """B3a and B3b against their plain versions, bitwise: the words, the
-    ±1 they unpack to (= where(x >= 0, 1, -1)) and the tail bits (1)."""
+    ±1 they unpack to (= where(flush(x) >= 0, 1, -1)) and the tail bits
+    (1)."""
     n = x.numel()
-    for i, v in zip((0, 5, 7, 9, 12), (0.0, -0.0, math.nan, math.inf,
-                                       -math.inf)):
+    for i, v in zip((0, 5, 7, 9, 12, 14, 17, 19, 22),
+                    (0.0, -0.0, math.nan, math.inf, -math.inf, 1e-40,
+                     -1e-40, -3e-39, -FLT_MIN)):
         if i < n:
             x[i] = v
     words = bp_mod.pack_signs(x)
@@ -266,7 +308,7 @@ def check_b3(x: torch.Tensor) -> None:
         raise AssertionError(f"B3a disagrees at n={n}, word {bad}: "
                              f"{int(words[bad])} vs {int(want_words[bad])}")
     if not same_bits(back, want_back) or not same_bits(
-            back, torch.where(x >= 0, 1.0, -1.0)):
+            back, torch.where(flush_subnormal(x) >= 0, 1.0, -1.0)):
         raise AssertionError(f"B3b disagrees at n={n}")
     tail = n % 32
     if tail and (int(words[-1]) & 0xFFFFFFFF) >> tail != (1 << (32 - tail)) - 1:
@@ -667,6 +709,273 @@ def phase_routes(dev) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: B5 and B6 against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def check_b5(x: torch.Tensor, label: str) -> float:
+    """B5 twice (signs and scale bitwise equal) against its plain version:
+    signs bitwise, the scale within B5_RTOL; returns |scale − plain|."""
+    signs, scale = sq_mod.sign_quant(x)
+    signs2, scale2 = sq_mod.sign_quant(x)
+    want_signs, want_scale = sq_mod.sign_quant_plain(x)
+    torch.cuda.synchronize()
+    if not (same_bits(signs, signs2) and same_bits(scale, scale2)):
+        raise AssertionError(f"B5 not bitwise repeatable at {label}")
+    if not same_bits(signs, want_signs):
+        bad = int(torch.nonzero(signs != want_signs)[0])
+        raise AssertionError(f"B5 signs disagree at {label}, element {bad}: "
+                             f"{int(signs[bad])} vs {int(want_signs[bad])}")
+    if x.numel() == 0:
+        if not (bool(torch.isnan(scale)) and bool(torch.isnan(want_scale))):
+            raise AssertionError(f"B5 scale of n=0 not NaN: {float(scale)}")
+        return 0.0
+    err = abs(float(scale) - float(want_scale))
+    if err > B5_RTOL * abs(float(want_scale)):
+        raise AssertionError(f"B5 scale disagrees at {label}: "
+                             f"{float(scale)} vs {float(want_scale)}")
+    return err
+
+
+def check_b6(x: torch.Tensor, tau: torch.Tensor, label: str) -> int:
+    """B6 twice (bitwise equal) against its plain version: the masked
+    vector and the count bitwise; returns the count."""
+    out, cnt = tm_mod.topk_mask(x, tau)
+    out2, cnt2 = tm_mod.topk_mask(x, tau)
+    want, want_cnt = tm_mod.topk_mask_plain(x, tau)
+    torch.cuda.synchronize()
+    if not (same_bits(out, out2) and same_bits(cnt, cnt2)):
+        raise AssertionError(f"B6 not bitwise repeatable at {label}")
+    if not same_bits(out, want):
+        bad = int(torch.nonzero(out.view(torch.int32)
+                                != want.view(torch.int32))[0])
+        raise AssertionError(f"B6 disagrees at {label}, element {bad}: "
+                             f"{float(out[bad])} vs {float(want[bad])}")
+    if not same_bits(cnt, want_cnt):
+        raise AssertionError(f"B6 count disagrees at {label}: {float(cnt)} "
+                             f"vs {float(want_cnt)}")
+    return int(cnt)
+
+
+def b6_taus(x: torch.Tensor) -> list:
+    """The fixed edge thresholds, and the sampled ones of k = 1% and 10%
+    (``topk_threshold`` on the card, equal bitwise to the CPU's)."""
+    taus = [(f"tau={t:g}", torch.tensor(t, device=x.device))
+            for t in EDGE_TAUS]
+    if x.numel():
+        for frac in (0.01, 0.1):
+            k = max(1, int(frac * x.numel()))
+            t = ops.topk_threshold(x, k)
+            t_cpu = ops.topk_threshold(x.cpu(), k)
+            if not same_bits(t.cpu(), t_cpu):
+                raise AssertionError(f"topk_threshold at n={x.numel()}, "
+                                     f"k={k}: card {float(t)} vs CPU "
+                                     f"{float(t_cpu)}")
+            taus.append((f"k={frac:.0%}", t))
+    return taus
+
+
+def check_b56(x: torch.Tensor, label: str) -> float:
+    err = check_b5(x, label)
+    for tlabel, tau in b6_taus(x):
+        check_b6(x, tau, f"{label}, {tlabel}")
+    return err
+
+
+def phase_b56(dev) -> float:
+    phase("B5 sign_quant and B6 topk_mask vs plain, on the card")
+    g = gen(dev, 31)
+    edge = torch.tensor(EDGE, device=dev)
+    worst = 0.0
+    for n in B56_LENGTHS:
+        x = torch.randn(n, generator=g, device=dev)
+        m = min(n, edge.numel())
+        x[:m] = edge[:m]
+        worst = max(worst, check_b56(x, f"n={n}"))
+    worst = max(worst, check_b56(edge, "the edge vector"))
+    # values exactly at a threshold are kept
+    for v in (0.25, 0.125, FLT_MIN):
+        if check_b6(edge, torch.tensor(v, device=dev),
+                    f"edge vector, tau={v:g}") != int(
+                        (edge.abs() >= v).sum()):
+            raise AssertionError(f"B6 count at tau={v:g}")
+    for leaf in flat.tree_leaves(mlp_tree(g, 1e-3)):
+        worst = max(worst, check_b56(leaf.reshape(-1),
+                                     f"MLP leaf {tuple(leaf.shape)}"))
+    # an unaligned view takes the kernels' scalar loops
+    x = torch.randn(4099, generator=g, device=dev)[3:]
+    worst = max(worst, check_b56(x, "an unaligned view"))
+    print(f"  B5 signs bitwise and scale within rtol {B5_RTOL} (max |diff| "
+          f"{worst:.3e}), B6 masks and counts bitwise, both bitwise "
+          f"repeatable, at n={B56_LENGTHS}, the edge vector, the MLP's 6 "
+          f"leaves and an unaligned view, tau in {EDGE_TAUS} and the sampled "
+          f"k = 1%, 10% (card threshold == CPU threshold)")
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the compressor library at the MLP's full width
+# ---------------------------------------------------------------------------
+
+
+def client_update(state: FLState, batches) -> dict:
+    """Client 0's u = g + e at the trainer's state: K local SGD steps on
+    its batches plus its EF residual."""
+    g, _ = local_train(make_mlp(MNIST_SPEC).loss, state.params,
+                       flat.tree_map(lambda x: x[0], batches), 0.01)
+    return flat.tree_add(g, flat.tree_map(lambda e: e[0], state.ef))
+
+
+def telescopes(name: str, total_g, total_recon, e) -> None:
+    """Σ recon_t + e_T = Σ g_t (e_0 = 0), rtol 1e-4 and an absolute floor
+    of 1e-4 of max |Σ g| (the reference's rtol/atol 1e-4 for unit-scale
+    updates)."""
+    lhs = flat.tree_add(total_recon, e)
+    top = max(float(t.abs().max()) for t in flat.tree_leaves(total_g))
+    assert_close(f"{name} EF telescoping", lhs, total_g,
+                 dict(rtol=1e-4, atol=1e-4 * top))
+
+
+def phase_compressors(state: FLState, batches, dev) -> dict:
+    phase(f"compressor library at d={MLP_D} on a client update")
+    u = client_update(state, batches)
+    params = state.params
+    g = gen(dev, 37)
+    steps = [flat.tree_map(lambda t: t * (1.0 + 0.1 * i), u)
+             for i in range(EF_STEPS)]
+    for kind in ("identity", "topk", "randk", "signsgd", "stc"):
+        comp = make_compressor(CompressorConfig(kind=kind, keep_ratio=0.01))
+        e = comp.init_state(params)
+        tg, tr = flat.tree_zeros_like(params), flat.tree_zeros_like(params)
+        reset_counts()
+        for gt in steps:
+            recon, e, m = comp.step(g, gt, e, params)
+            if not bool(torch.isfinite(m.cosine)):
+                raise AssertionError(f"{kind}: non-finite cosine")
+            tg, tr = flat.tree_add(tg, gt), flat.tree_add(tr, recon)
+        torch.cuda.synchronize()
+        # the efficiency cosine is one B1 launch per step (identity's is 1
+        # by construction); EF is u − recon
+        want = only(fused_cosine=0 if kind == "identity" else EF_STEPS)
+        if counts() != want:
+            raise AssertionError(f"{kind}: launches {counts()}, expected "
+                                 f"{want}")
+        telescopes(f"make_compressor({kind!r})", tg, tr, e)
+    vec = torch.cat([t.reshape(-1) for t in flat.tree_leaves(u)])
+    k = leaf_k(vec.numel(), 0.01)
+    for name, fn in (("topk", lambda v: baselines.topk_compress(v, k)),
+                     ("signsgd", baselines.signsgd_compress),
+                     ("stc", lambda v: baselines.stc_compress(v, k)),
+                     ("randk", lambda v: baselines.randk_compress(g, v, k))):
+        e = ef.ef_init(vec.numel(), dev)
+        tg, tr = torch.zeros_like(vec), torch.zeros_like(vec)
+        for i in range(EF_STEPS):
+            gt = vec * (1.0 + 0.1 * i)
+            _, recon, e = ef.ef_step(fn, gt, e)
+            tg, tr = tg + gt, tr + recon
+        telescopes(f"flat ef_step({name})", tg, tr, e)
+    # the B5/B6 front end against the exact baselines
+    reset_counts()
+    calls = 0
+    for leaf in flat.tree_leaves(u):
+        signs, scale = ops.sign_quant(leaf)
+        calls += 1
+        payload, _ = baselines.signsgd_compress(leaf.reshape(-1))
+        if not torch.equal(signs.reshape(-1).float(), payload.data[0]):
+            raise AssertionError(f"sign_quant vs signsgd_compress signs at "
+                                 f"{tuple(leaf.shape)}")
+        if abs(float(scale) - float(payload.data[1])) > B5_RTOL * abs(
+                float(payload.data[1])):
+            raise AssertionError(f"sign_quant vs signsgd_compress scale at "
+                                 f"{tuple(leaf.shape)}: {float(scale)} vs "
+                                 f"{float(payload.data[1])}")
+    kept = {}
+    for frac in (0.01, 0.1):
+        kk = max(1, int(frac * vec.numel()))
+        out, cnt = ops.topk_mask(vec, ops.topk_threshold(vec, kk))
+        calls += 1
+        _, exact = baselines.topk_compress(vec, kk)
+        mask, top = out != 0, exact != 0
+        if not 0.3 * kk <= int(cnt) <= 3 * kk:
+            raise AssertionError(f"topk_mask kept {int(cnt)} of k={kk}")
+        if int(mask.sum()) != int(cnt) or not torch.equal(out[mask],
+                                                          vec[mask]):
+            raise AssertionError("topk_mask's kept values are not x's")
+        # both are the largest magnitudes above a threshold: one support
+        # holds the other
+        inter = int((mask & top).sum())
+        if inter != min(int(mask.sum()), int(top.sum())):
+            raise AssertionError(f"topk_mask support and top-k support "
+                                 f"are not nested at k={kk}")
+        kept[kk] = (int(cnt), inter)
+    torch.cuda.synchronize()
+    launched = counts()
+    want = only(sign_quant=len(flat.tree_leaves(u)), topk_mask=2)
+    if launched != want or launched["sign_quant"] + launched[
+            "topk_mask"] != calls:
+        raise AssertionError(f"front end launches {launched}, expected "
+                             f"{want}")
+    print(f"  front end: {calls} calls, launches {launched}; sign_quant == "
+          f"signsgd_compress on the 6 leaves; topk_mask kept (count, in the "
+          f"exact top-k) {kept}")
+    return launched
+
+
+# ---------------------------------------------------------------------------
+# phase 13: randk and FedSynth rounds through build_fl_round
+# ---------------------------------------------------------------------------
+
+
+def accounted_round(kind: str):
+    model = make_mlp(MNIST_SPEC)
+    comp = CompressorConfig(kind=kind, keep_ratio=0.01)
+    strategy = make_strategy(comp, loss_fn=model.syn_loss,
+                             syn_spec=vision_syn_spec(MNIST_SPEC, comp),
+                             local_lr=0.01)
+    run = RunConfig(fl=FLConfig(num_clients=N, local_steps=K, local_lr=0.01,
+                                local_batch=B, compressor=comp))
+    return build_fl_round(model.loss, strategy, run), strategy
+
+
+def phase_accounted(state: FLState, batches, syn0):
+    phase(f"randk and FedSynth rounds (N={N}, K={K}, B={B}, float mode, "
+          f"EF on, {ROUNDS} rounds)")
+    rounds = {}
+    for kind in ("randk", "fedsynth"):
+        fl_round, strategy = accounted_round(kind)
+        s = FLState(state.params, flat.tree_map(torch.zeros_like, state.ef),
+                    0)
+        reset_counts()
+        t0 = time.perf_counter()
+        for r in range(ROUNDS):
+            s, m = fl_round(s, batches, r)
+            if not (bool(torch.isfinite(m.cosine).all())
+                    and math.isfinite(float(m.loss))
+                    and math.isfinite(float(m.update_norm))):
+                raise AssertionError(f"{kind}: non-finite metrics {m}")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()
+        # one efficiency cosine (B1) per client per round; EF is u − recon
+        want = only(fused_cosine=ROUNDS * N)
+        if launched != want:
+            raise AssertionError(f"{kind} launches {launched}, expected "
+                                 f"{want}")
+        print(f"  {kind}: {ROUNDS} rounds in {wall:.2f} s, launches "
+              f"{launched}, mean cosine {float(m.cosine.mean()):.4f}")
+        rounds[kind] = (fl_round, s)
+    fs_round, fs_state = rounds["fedsynth"]
+    s_card, _ = fs_round(fs_state, batches, 0, syn0=syn0)
+    s_cpu, _ = fs_round(FLState(to_cpu(fs_state.params), to_cpu(fs_state.ef),
+                                fs_state.round),
+                        to_cpu(batches), 0, syn0=SynData(*to_cpu(list(syn0))))
+    assert_close("fedsynth card vs CPU params", s_card.params, s_cpu.params,
+                 PARAM_TOL)
+    assert_close("fedsynth card vs CPU EF", s_card.ef, s_cpu.ef, EF_TOL)
+    return fs_round, fs_state
+
+
+# ---------------------------------------------------------------------------
 # phase 7: times
 # ---------------------------------------------------------------------------
 
@@ -727,7 +1036,8 @@ def bound_ms(nbytes: int, flops: int) -> tuple:
 
 KERNEL_NAMES = ("fused_cosine_partials", "fused_cosine_finish",
                 "ef_update_kernel", "pack_signs_kernel", "unpack_signs_kernel",
-                "ssd_chunk_kernel")
+                "ssd_chunk_kernel", "sign_quant_partials", "sign_quant_finish",
+                "topk_mask_partials", "topk_mask_finish")
 
 
 def round_profile(one_round) -> dict:
@@ -822,6 +1132,54 @@ def b4_time_row(dev, launched: int, err: float) -> dict:
             "launches_per_prefill": SERVE_LAYERS}
 
 
+def b56_time_rows(dev, launched, errs) -> list:
+    """B5 and B6 at the MLP's d (the row's numbers) and at 4 Mi + 5
+    (``at_4Mi5``): the kernel in a CUDA graph and eagerly, its plain
+    version, and its bound, 5n bytes for B5 and 8n for B6 (no single
+    PyTorch call gives either result: no library time). B6 at the sampled
+    threshold of k = 1%. At the MLP's d one vector is reused, L2-resident
+    as the main path's just-computed update is; at 4 Mi + 5 the calls
+    rotate over L2_ROTATE vectors (over 100 MB in all, twice the 50 MB L2),
+    so each call reads from device memory."""
+    g = gen(dev, 41)
+    rows = []
+    for name, source, replaces, per_elem in (
+            ("sign_quant", "src/repro_torch/kernels/csrc/sign_quant.cu",
+             "src/repro/kernels/sign_quant.py:36", 5),
+            ("topk_mask", "src/repro_torch/kernels/csrc/topk_mask.cu",
+             "src/repro/kernels/topk_mask.py:38", 8)):
+        at = {}
+        for n, copies in ((MLP_D, 1), ((1 << 22) + 5, L2_ROTATE)):
+            xs = [torch.randn(n, generator=g, device=dev)
+                  for _ in range(copies)]
+            tau = ops.topk_threshold(xs[0], max(1, n // 100))
+            nxt = itertools.cycle(xs).__next__
+            if name == "sign_quant":
+                kern = lambda: sq_mod.sign_quant(nxt())
+                plain = lambda: sq_mod.sign_quant_plain(nxt())
+                nbytes = n * 4 + n + 4
+            else:
+                kern = lambda: tm_mod.topk_mask(nxt(), tau)
+                plain = lambda: tm_mod.topk_mask_plain(nxt(), tau)
+                nbytes = n * 4 + 4 + n * 4 + 4
+            kern_ms, eager_ms = graph_ms(kern), call_ms(kern)
+            plain_ms = graph_ms(plain)
+            b_ms, b_by = bound_ms(nbytes, 2 * n)
+            print(f"  {name} at n={n} ({copies} vector(s) in turn): "
+                  f"kernel_ms={kern_ms:.6f} (eager call {eager_ms:.6f}) "
+                  f"bound_ms={b_ms:.6f} ({b_by}, {per_elem}n bytes) "
+                  f"plain_ms={plain_ms:.6f} library_ms=none")
+            at[n] = {"ms": kern_ms, "call_ms": eager_ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by}
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launched[name],
+                     "max_abs_err": errs[name], **at[MLP_D],
+                     "library_ms": None, "at_4Mi5": at[(1 << 22) + 5],
+                     "launches_per_call": 1})
+    return rows
+
+
 def phase_times(dev, launched, errs, rounds):
     """``launched`` holds each kernel's launches on its path's run;
     ``rounds`` is [(label, one_round)] to profile."""
@@ -880,6 +1238,7 @@ def phase_times(dev, launched, errs, rounds):
                      "call_ms": eager_ms,
                      "launches_per_round": per_round})
     rows.append(b4_time_row(dev, launched["ssd_chunk"], errs["ssd_chunk"]))
+    rows += b56_time_rows(dev, launched, errs)
     for label, one_round in rounds:
         print_profile(label, round_profile(one_round))
     return rows
@@ -927,15 +1286,23 @@ def main() -> int:
     errs["ssd_chunk"] = phase_b4(dev)
     serve_launched = phase_serve()
     phase_routes(dev)
+    err_b5 = phase_b56(dev)
+    front_launched = phase_compressors(state, batches, dev)
+    fs_round, fs_state = phase_accounted(state, batches, syn0)
     launched = {**launched, "pack_signs": codec_launched["pack_signs"],
                 "unpack_signs": codec_launched["unpack_signs"],
-                "ssd_chunk": serve_launched["ssd_chunk"]}
+                "ssd_chunk": serve_launched["ssd_chunk"],
+                "sign_quant": front_launched["sign_quant"],
+                "topk_mask": front_launched["topk_mask"]}
+    errs = {**errs, "sign_quant": err_b5, "topk_mask": 0.0}
     sign_round = sign_codec_round(sign_state)
     rows = phase_times(dev, launched, errs, [
         (f"main-path round (S={S}, N={N}, K={K}, B={B})",
          lambda: float_round(state, batches, 0, syn0=syn0)),
         (f"signSGD codec round (N={N}, K={K}, B={B})",
          lambda: sign_round(sign_state, batches, 0)),
+        (f"FedSynth round (N={N}, K={K}, B={B}, 10 opt x 5 unroll steps)",
+         lambda: fs_round(fs_state, batches, 0, syn0=syn0)),
     ])
 
     print(card)

@@ -39,6 +39,7 @@ from repro_torch.core.threesfc import SynData, SynSpec
 from repro_torch.core.tree import tree_flatten, tree_leaves, tree_map, \
     tree_unflatten
 from repro_torch.kernels import bitpack
+from repro_torch.kernels.ftz import flush_subnormal
 
 PyTree = Any
 
@@ -121,8 +122,9 @@ def _bytes_to_words(b: torch.Tensor, nwords: int) -> torch.Tensor:
 
 
 def _pm1(x: torch.Tensor) -> torch.Tensor:
-    """The 1-bit wire sign: +1 where x >= 0, else -1 (never 0)."""
-    return torch.where(x >= 0, 1.0, -1.0).to(torch.float32)
+    """The 1-bit wire sign: +1 where x >= 0, else -1 (never 0); a
+    subnormal is flushed first, as the reference flushes it."""
+    return torch.where(flush_subnormal(x) >= 0, 1.0, -1.0).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -369,7 +371,7 @@ class StcCodec(Codec):
     def _pack(self, wire):
         sections = []
         for (sgn, idx, mu), (_, _, w) in zip(wire, self._layout()):
-            sections.append(pack_uint_stream(sgn >= 0, 1))
+            sections.append(pack_uint_stream(flush_subnormal(sgn) >= 0, 1))
             sections.append(pack_uint_stream(idx, w))
             sections.append(array_to_bytes(mu))
         return sections

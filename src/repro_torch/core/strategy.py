@@ -1,14 +1,16 @@
 """CompressionStrategy: one protocol object per compression method.
 
-The port of the JAX package's ``core/strategy.py`` for the methods that
-have a wire format: ``identity`` (FedAvg), ``topk`` (DGC), ``signsgd``,
-``stc`` and ``threesfc``. A strategy carries:
+The port of the JAX package's ``core/strategy.py``: the methods with a wire
+format — ``identity`` (FedAvg), ``topk`` (DGC), ``signsgd``, ``stc`` and
+``threesfc`` — and the accounted-only ``randk`` and ``fedsynth``. A
+strategy carries:
 
 * ``client_encode(key, u, params) -> TreeCompressed`` — the per-client
   encoder. ``key`` is a ``torch.Generator`` the encoder draws from (3SFC's
   initial ``D_syn``); a ready ``SynData`` in its place is used as the
   initial ``D_syn`` directly (the seam that lets tests start from the
-  reference's draws).
+  reference's draws); for ``randk`` a tuple of per-leaf index tensors in
+  its place is used as the draws.
 * ``server_decode(payload, params)`` — one client's reconstruction from
   its canonical wire payload.
 * ``server_aggregate(params, payloads)`` (when
@@ -26,12 +28,13 @@ kernel B2 (``ops.tree_ef_update``).
 """
 from __future__ import annotations
 
+import warnings
 from typing import Any, Dict, NamedTuple, Optional, Type
 
 import torch
 
 from repro_torch.configs.base import CompressorConfig
-from repro_torch.core import flat
+from repro_torch.core import baselines, flat
 from repro_torch.core.tree import tree_flatten, tree_leaves, tree_unflatten
 from repro_torch.kernels import ops
 
@@ -66,6 +69,18 @@ def leaf_k(n: int, ratio: float) -> int:
     """Kept entries for a size-n leaf at ``keep_ratio`` — the one source of
     per-leaf budgets (the wire codecs derive their layouts from it)."""
     return max(1, int(round(ratio * n)))
+
+
+_DEPRECATION_SEEN: set = set()
+
+
+def warn_deprecated_once(name: str, replacement: str) -> None:
+    """One DeprecationWarning per process per shim name."""
+    if name in _DEPRECATION_SEEN:
+        return
+    _DEPRECATION_SEEN.add(name)
+    warnings.warn(f"{name} is deprecated; use {replacement}",
+                  DeprecationWarning, stacklevel=3)
 
 
 def _device_of(tree: PyTree) -> torch.device:
@@ -238,14 +253,21 @@ def make_strategy(cfg: CompressorConfig, *, loss_fn=None, syn_spec=None,
 
 
 # ---------------------------------------------------------------------------
-# the methods with a wire format
+# the methods
 # ---------------------------------------------------------------------------
 
 
-def _top_idx(v: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices of the k largest |v|, in descending order of magnitude
-    (tied magnitudes may come in another order than ``lax.top_k``'s)."""
-    return torch.topk(torch.abs(v), k, sorted=True).indices
+def _per_leaf(compress, u: PyTree):
+    """A flat compressor of ``core.baselines`` (``v -> (Payload, recon)``)
+    on every leaf of ``u``: (recon tree, tuple of the leaves' payload
+    data)."""
+    leaves, treedef = tree_flatten(u)
+    recs, datas = [], []
+    for l in leaves:
+        payload, rec = compress(l.reshape(-1))
+        recs.append(rec.reshape(l.shape))
+        datas.append(payload.data)
+    return tree_unflatten(treedef, recs), tuple(datas)
 
 
 def _scatter(n: int, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
@@ -280,23 +302,37 @@ class TopKStrategy(CompressionStrategy):
                          for l in tree_leaves(params)))
 
     def client_encode(self, key, u, params):
-        leaves, treedef = tree_flatten(u)
-        recs, wires = [], []
-        for l in leaves:
-            v = l.reshape(-1)
-            idx = _top_idx(v, leaf_k(v.numel(), self.cfg.keep_ratio))
-            vals = v[idx]
-            recs.append(_scatter(v.numel(), idx, vals).reshape(l.shape))
-            wires.append((vals, idx))
-        return TreeCompressed(tree_unflatten(treedef, recs),
-                              _scalar(self.payload_floats(params), u),
-                              _scalar(0.0, u), wire=tuple(wires))
+        # per leaf (vals, idx), in descending order of |u| (tied magnitudes
+        # may come in another order than lax.top_k's)
+        recon, wire = _per_leaf(lambda v: baselines.topk_compress(
+            v, leaf_k(v.numel(), self.cfg.keep_ratio)), u)
+        return TreeCompressed(recon, _scalar(self.payload_floats(params), u),
+                              _scalar(0.0, u), wire=wire)
 
     def server_decode(self, payload, params):
         leaves, treedef = tree_flatten(params)
         out = [_scatter(leaf.numel(), idx, vals).reshape(leaf.shape)
                for (vals, idx), leaf in zip(payload, leaves)]
         return tree_unflatten(treedef, out)
+
+
+@register_strategy("randk")
+class RandKStrategy(CompressionStrategy):
+    """Random-k per leaf (accounted-only: no wire format registered)."""
+
+    def payload_floats(self, params) -> float:
+        return float(sum(leaf_k(l.numel(), self.cfg.keep_ratio)
+                         for l in tree_leaves(params)) + 1)
+
+    def client_encode(self, key, u, params):
+        # a plain tuple of index tensors is the per-leaf draws; else every
+        # leaf draws from the one generator, one after another
+        draws = iter(key if type(key) is tuple
+                     else [key] * len(tree_leaves(u)))
+        recon, _ = _per_leaf(lambda v: baselines.randk_compress(
+            next(draws), v, leaf_k(v.numel(), self.cfg.keep_ratio)), u)
+        return TreeCompressed(recon, _scalar(self.payload_floats(params), u),
+                              _scalar(0.0, u))
 
 
 @register_strategy("signsgd")
@@ -308,14 +344,12 @@ class SignSGDStrategy(CompressionStrategy):
         return sum(l.numel() for l in leaves) / 32.0 + len(leaves)
 
     def client_encode(self, key, u, params):
-        leaves, treedef = tree_flatten(u)
-        scales = [torch.mean(torch.abs(l)) for l in leaves]
-        recon = tree_unflatten(
-            treedef, [s * torch.sign(l) for s, l in zip(scales, leaves)])
+        recon, data = _per_leaf(baselines.signsgd_compress, u)
         # wire: the sign *source* tree + per-leaf scales; the codec packs
-        # one bit per coordinate from it (bit = coord >= 0)
+        # one bit per coordinate from it (bit = flush(coord) >= 0)
+        scales = torch.stack([scale for _, scale in data])
         return TreeCompressed(recon, _scalar(self.payload_floats(params), u),
-                              _scalar(0.0, u), wire=(u, torch.stack(scales)))
+                              _scalar(0.0, u), wire=(u, scales))
 
     def server_decode(self, payload, params):
         # the canonical payload is already the reconstructed tree (signs
@@ -333,19 +367,12 @@ class STCStrategy(CompressionStrategy):
         return float(sum(ks)) + sum(ks) / 32.0 + len(ks)
 
     def client_encode(self, key, u, params):
-        leaves, treedef = tree_flatten(u)
-        recs, wires = [], []
-        for l in leaves:
-            v = l.reshape(-1)
-            idx = _top_idx(v, leaf_k(v.numel(), self.cfg.keep_ratio))
-            vals = v[idx]
-            mu = torch.mean(torch.abs(vals))
-            sgn = torch.sign(vals)
-            recs.append(_scatter(v.numel(), idx, mu * sgn).reshape(l.shape))
-            wires.append((sgn, idx, mu))
-        return TreeCompressed(tree_unflatten(treedef, recs),
-                              _scalar(self.payload_floats(params), u),
-                              _scalar(0.0, u), wire=tuple(wires))
+        # per leaf (signs, idx, mu): the signs as the reference decides them
+        # (subnormals flushed, a zero keeps its sign)
+        recon, wire = _per_leaf(lambda v: baselines.stc_compress(
+            v, leaf_k(v.numel(), self.cfg.keep_ratio)), u)
+        return TreeCompressed(recon, _scalar(self.payload_floats(params), u),
+                              _scalar(0.0, u), wire=wire)
 
     def server_decode(self, payload, params):
         leaves, treedef = tree_flatten(params)
@@ -427,3 +454,39 @@ class ThreeSFCStrategy(CompressionStrategy):
         """(D_syn, s) is linear in s, so masking a client is s_i <- w_i s_i."""
         syns, ss = payloads
         return syns, ss * w
+
+
+@register_strategy("fedsynth")
+class FedSynthStrategy(ThreeSFCStrategy):
+    """FedSynth baseline: K-step unrolled synthesis (accounted-only wire).
+
+    ``opt_steps = max(syn_steps, 10)`` GD steps on ``D_syn`` at
+    ``syn_lr``, each through ``unroll_steps`` simulated SGD steps at the
+    clients' ``local_lr``; a ``SynData`` key is the initial ``D_syn``, as
+    for 3SFC. EF is ``u − recon``; the server has no payload decode.
+    """
+
+    supports_fused_aggregate = False
+
+    def client_encode(self, key, u, params):
+        from repro_torch.core import fedsynth, threesfc
+        self._need_loss_fn()
+        syn0 = key if isinstance(key, threesfc.SynData) \
+            else threesfc.init_syn(key, self.syn_spec)
+        res = fedsynth.encode(
+            self.loss_fn, params, u, syn0,
+            unroll_steps=self.cfg.unroll_steps,
+            opt_steps=max(self.cfg.syn_steps, 10),
+            lr=self.local_lr, syn_lr=self.cfg.syn_lr,
+        )
+        return TreeCompressed(res.recon,
+                              _scalar(self.payload_floats(params), u),
+                              res.l2)
+
+    def server_decode(self, payload, params):
+        raise NotImplementedError(
+            "fedsynth has no payload decode (unrolled recon is client-side)")
+
+    def server_aggregate(self, params, payloads):
+        raise NotImplementedError(
+            "strategy 'fedsynth' does not support fused aggregation")

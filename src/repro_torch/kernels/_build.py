@@ -25,7 +25,8 @@ from typing import Dict, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("fused_cosine", "ef_update", "bitpack", "ssd_chunk")
+KERNELS = ("fused_cosine", "ef_update", "bitpack", "ssd_chunk", "sign_quant",
+           "topk_mask")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

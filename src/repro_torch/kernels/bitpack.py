@@ -7,8 +7,10 @@ ballot, ``unpack_signs`` writes one ±1 per thread. Both are bound by bytes
 (4n in and n/8 out, or the reverse).
 
 Wire contract, shared with ``comm.codec``: flat element ``i`` lands in word
-``i // 32``, bit ``i % 32`` (LSB first); the bit is ``x >= 0``, so ``-0.0``
-packs to 1, NaN to 0, and an exact zero unpacks to +1. Bits past ``n`` in
+``i // 32``, bit ``i % 32`` (LSB first); the bit is ``x >= 0`` after a
+subnormal is flushed to a zero of its sign (``kernels.ftz``, as the
+reference flushes it), so ``-0.0`` and ``-1e-40`` pack to 1, NaN to 0, and
+an exact zero unpacks to +1. Bits past ``n`` in
 the last word are 1 (the reference pads the tail with +1.0). Words are kept
 as ``int32`` tensors holding the 32 bits; ``.view(torch.uint8)`` gives
 their little-endian bytes.
@@ -25,6 +27,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.ftz import flush_subnormal
 
 # kernel launches since import (or since a caller reset them to 0)
 LAUNCHES = {"pack_signs": 0, "unpack_signs": 0}
@@ -65,12 +68,12 @@ def _to_int32_bits(v: torch.Tensor) -> torch.Tensor:
 
 
 def pack_signs_plain(x: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version: pad with +1.0, test ``>= 0``, shift and sum
-    each row of 32 in int64."""
+    """The plain PyTorch version: pad with +1.0, flush subnormals, test
+    ``>= 0``, shift and sum each row of 32 in int64."""
     n = x.numel()
     pad = num_words(n) * 32 - n
     xp = torch.cat([x, x.new_ones(pad)]) if pad else x
-    bits = (xp >= 0).to(torch.int64).reshape(-1, 32)
+    bits = (flush_subnormal(xp) >= 0).to(torch.int64).reshape(-1, 32)
     words = torch.sum(bits << _shifts(x.device), dim=1)
     return _to_int32_bits(words)
 
@@ -103,7 +106,7 @@ def _launch(fn, src: torch.Tensor, dst: torch.Tensor, n: int,
 
 
 def pack_signs(x: torch.Tensor) -> torch.Tensor:
-    """(n,) f32 -> (ceil(n/32),) int32 sign words; bit = (x >= 0)."""
+    """(n,) f32 -> (ceil(n/32),) int32 sign words; bit = (flush(x) >= 0)."""
     if x.dtype != torch.float32 or x.dim() != 1:
         raise TypeError(f"pack_signs takes an (n,) f32 vector, got "
                         f"{x.dtype}{list(x.shape)}")

@@ -7,7 +7,11 @@
 // vectors are flat:
 //
 // * pack: flat element i goes to word i / 32, bit i % 32 (LSB first); the
-//   bit is (x >= 0), so -0.0 packs to 1 and NaN to 0. Each warp builds one
+//   bit is (x >= 0) after a subnormal is flushed to a zero of its sign (the
+//   reference computes with subnormals flushed: XLA's CPU runtime runs with
+//   FTZ/DAZ and a TPU has none), so -0.0 and -1e-40 pack to 1 and NaN to 0.
+//   The flush is written out here, not left to -ftz=true, which would change
+//   the other kernels' numerics through the shared flags. Each warp builds one
 //   word per 32 consecutive elements: lane l tests x[32w + l] and
 //   __ballot_sync hands back the word directly, lane l as bit l. Lanes past
 //   n vote 1, as the reference pads the tail with +1.0. A grid-stride loop
@@ -23,11 +27,16 @@
 // reads each input once, coalesced (a warp's 32 loads are one 128-byte line),
 // and writes each output once.
 #include <cuda_runtime.h>
+#include <float.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+
+__device__ __forceinline__ float flush_subnormal(float v) {
+  return fabsf(v) < FLT_MIN ? copysignf(0.f, v) : v;
+}
 
 __global__ void __launch_bounds__(kThreads)
 pack_signs_kernel(const float* __restrict__ x, uint32_t* __restrict__ words,
@@ -39,7 +48,7 @@ pack_signs_kernel(const float* __restrict__ x, uint32_t* __restrict__ words,
   // ballot together
   for (int64_t w = warp; w < nwords; w += nwarps) {
     const int64_t i = (w << 5) + lane;
-    const bool bit = i < n ? (__ldg(x + i) >= 0.f) : true;
+    const bool bit = i < n ? (flush_subnormal(__ldg(x + i)) >= 0.f) : true;
     const unsigned word = __ballot_sync(0xffffffffu, bit);
     if (lane == 0) words[w] = word;
   }

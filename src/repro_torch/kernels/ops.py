@@ -10,6 +10,11 @@
 * ``ssd_chunked`` / ``ssd_chunked_ad`` — the Mamba2 SSD scan with its
   intra-chunk step in kernel B4 (``kernels.ssd_chunk``), the contract of
   ``models.ssm.ssd_scan``; the inter-chunk recurrence stays outside.
+* ``sign_quant`` — signSGD's int8 signs and mean |x| through kernel B5
+  (``kernels.sign_quant``); ``topk_threshold`` + ``topk_mask`` — DGC's
+  sampled threshold (``torch.topk`` over a strided sample) and the
+  threshold select through kernel B6 (``kernels.topk_mask``). Both kernels
+  decide signs and thresholds with subnormals flushed, as the reference.
 
 Both tree forms stream the leaves in lockstep chunks of at most
 ``TREE_CHUNK_ELEMS`` elements, and each chunk is one kernel launch.
@@ -28,7 +33,9 @@ import torch
 from repro_torch.core.tree import PyTree, tree_flatten, tree_unflatten
 from repro_torch.kernels import ef_update as _ef
 from repro_torch.kernels import fused_cosine as _fc
+from repro_torch.kernels import sign_quant as _sq
 from repro_torch.kernels import ssd_chunk as _ssd
+from repro_torch.kernels import topk_mask as _tm
 
 # Per-chunk element budget for the tree-streaming reductions: 4 Mi elements
 # = 16 MiB f32 per operand.
@@ -213,6 +220,49 @@ def tree_ef_update(u_tree: PyTree, d_tree: PyTree, s) -> PyTree:
         for ps, l in zip(pieces, u_leaves)
     ]
     return tree_unflatten(treedef, new_leaves)
+
+
+# ---------------------------------------------------------------------------
+# sign_quant (B5)
+# ---------------------------------------------------------------------------
+
+
+def sign_quant(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(int8 signs of x's shape, scale = mean |x|), one B5 launch."""
+    signs, scale = _sq.sign_quant(_ravel_f32(x))
+    return signs.reshape(x.shape), scale
+
+
+# ---------------------------------------------------------------------------
+# topk_mask (B6, threshold select)
+# ---------------------------------------------------------------------------
+
+
+def topk_threshold(x: torch.Tensor, k: int, sample: int = 65536
+                   ) -> torch.Tensor:
+    """Sampled threshold estimate: |x| of the ~k-th largest (DGC-style), a
+    0-d tensor on x's device. Exact for ``x.numel() <= sample``; else the
+    top ``round(k·m/n)`` of every ``n // sample``-th element (m of them)."""
+    v = torch.abs(x.reshape(-1))
+    n = v.numel()
+    if n <= sample:
+        kk = max(1, min(k, n))
+        return torch.topk(v, kk).values[-1]
+    sub = v[:: n // sample][:sample]
+    kk = max(1, min(int(round(k * sub.numel() / n)), sub.numel()))
+    return torch.topk(sub, kk).values[-1]
+
+
+def topk_mask(x: torch.Tensor, threshold) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """(masked f32 of x's shape, kept count), one B6 launch. ``threshold``
+    may be a tensor of one element (kept on the device) or a Python
+    number. The kernel floors τ at the reference's 1e-38 itself (see
+    ``kernels.topk_mask``)."""
+    xf = _ravel_f32(x)
+    tau = torch.as_tensor(threshold, dtype=torch.float32, device=xf.device)
+    out, cnt = _tm.topk_mask(xf, tau)
+    return out.reshape(x.shape), cnt
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,10 @@ built once on the JAX side, passed across as numpy, and encoded by both
 codecs. Index order is whatever the reference's ``lax.top_k`` gave, so the
 frames must match exactly. Decoding crosses over both ways and must give
 the canonical payload bitwise. The reference's ``bitpack`` runs in
-interpret mode off the TPU, as its own tests run it.
+interpret mode off the TPU, as its own tests run it. On a tree of
+±subnormals, ±0 and normal values each side encodes its own strategy's
+payload, and the frames must still match byte for byte: the reference
+decides signs with subnormals flushed to zero, and so does the port.
 """
 import functools
 
@@ -249,6 +252,44 @@ def test_bitpack_plain_matches_reference(n):
     if tail:
         assert int(got.numpy().view(np.uint32)[-1]) >> tail \
             == (1 << (32 - tail)) - 1
+
+
+def subnormal_tree():
+    """±subnormals, ±0 and normals with exact means and distinct kept
+    magnitudes (tests/test_torch_strategies.py holds the recon to it)."""
+    return {"a": np.array([1e-40, -2e-40, -3e-39, 0.5, -0.25, 0.0, -0.0,
+                           0.125], np.float32),
+            "b": np.array([0.5, -0.25, 0.75, 3e-39, -1e-40, -1e-41, 0.0,
+                           -0.0], np.float32)}
+
+
+@pytest.mark.parametrize("kind", ["signsgd", "stc"])
+def test_subnormal_frames_are_byte_identical(kind):
+    u = subnormal_tree()
+    params = {k: np.zeros_like(v) for k, v in u.items()}
+    jcfg = JCompressorConfig(kind=kind, keep_ratio=0.5)
+    jparams = jax.tree_util.tree_map(jnp.asarray, params)
+    jwire = jmake_strategy(jcfg).client_encode(
+        jax.random.PRNGKey(0), jax.tree_util.tree_map(jnp.asarray, u),
+        jparams).wire
+    jcodec = jmake_codec(jcfg, jparams)
+    want = np.asarray(jcodec.encode(jwire, round_idx=1, client_idx=2))
+    tparams = params_from_numpy(params, CPU)
+    tcodec = make_codec(port_cfg(jcfg), tparams)
+    twire = tcodec.strategy.client_encode(
+        None, params_from_numpy(u, CPU), tparams).wire
+    got = tcodec.encode(twire, round_idx=1, client_idx=2)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert_payload_bitwise(tcodec.decode(got), jcodec.canonical(jwire))
+    if kind == "signsgd":
+        # the probe of the fault: -1e-40 and -3e-39 flush to -0.0 and pack 1
+        x = np.array([1e-40, -1e-40, -3e-39, 0.5, -0.25, 0.0, -0.0],
+                     np.float32)
+        words = bitpack.pack_signs(torch.from_numpy(x)).numpy()
+        np.testing.assert_array_equal(
+            words.view(np.uint32),
+            np.asarray(jbitpack.pack_signs(jnp.asarray(x))))
+        assert int(words.view(np.uint32)[0]) == 0xFFFFFFEF
 
 
 def test_words_with_bit31_set_unpack_exactly():

@@ -14,7 +14,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import bitpack
 from repro_torch.kernels import ef_update as ef_mod
 from repro_torch.kernels import fused_cosine as fc_mod
+from repro_torch.kernels import sign_quant as sq_mod
 from repro_torch.kernels import ssd_chunk as ssd_mod
+from repro_torch.kernels import topk_mask as tm_mod
 from repro_torch.launch import train
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -63,7 +65,9 @@ def test_forbidden_match_is_exact():
 def test_importing_the_trainer_loads_no_jax():
     code = ("import sys, repro_torch.launch.train, repro_torch.fl.engine, "
             "repro_torch.launch.serve, repro_torch.models.ssm, "
-            "repro_torch.models.transformer, repro_torch.kernels.ssd_chunk\n"
+            "repro_torch.models.transformer, repro_torch.kernels.ssd_chunk, "
+            "repro_torch.core.compressor, repro_torch.core.fedsynth, "
+            "repro_torch.core.baselines, repro_torch.core.error_feedback\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -100,6 +104,10 @@ def test_wrappers_raise_on_a_device_they_do_not_run_on():
                           torch.ones((1, 2, 1, 8), device="meta"),
                           torch.ones((1, 1, 8, 4), device="meta"),
                           torch.ones((1, 1, 8, 4), device="meta"))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        sq_mod.sign_quant(x)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tm_mod.topk_mask(x, torch.ones((), device="meta"))
 
 
 def test_missing_nvcc_names_where_it_looked(monkeypatch):
@@ -116,6 +124,10 @@ def test_missing_nvcc_names_where_it_looked(monkeypatch):
 def test_library_names_follow_the_sources():
     paths = {n: _build._lib_path(n) for n in _build.KERNELS}
     assert sorted(p.name.split("-")[0] for p in paths.values()) == \
-        ["libbitpack", "libef_update", "libfused_cosine", "libssd_chunk"]
+        ["libbitpack", "libef_update", "libfused_cosine", "libsign_quant",
+         "libssd_chunk", "libtopk_mask"]
+    # one source per library
+    assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == \
+        sorted(f"{n}.cu" for n in _build.KERNELS)
     assert all(p.parent == _build.BUILD_DIR for p in paths.values())
     assert _build._lib_path("fused_cosine") == paths["fused_cosine"]

@@ -17,6 +17,10 @@ the budget table and codec-mode rounds, on the CPU.
   test therefore runs in lockstep, requires the two sides' signs of u to
   agree wherever |u_ref| > 1e-6·max|u_ref|, leaves the flipped coordinates
   out of that round's comparison and reports how many there were.
+* On a tree of ±subnormals, ±0 and normal values, signSGD's and STC's
+  reconstructions equal the reference's bitwise: the reference decides
+  signs with subnormals flushed to zero, and so does the port
+  (``kernels.ftz``).
 """
 import json
 import os
@@ -28,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs.base import CompressorConfig as JCompressorConfig
 from repro.configs.base import FLConfig as JFLConfig
 from repro.configs.run import RunConfig as JRunConfig
 from repro.core.strategy import make_strategy as jmake_strategy
@@ -116,8 +121,8 @@ def test_budget_table_matches_reference(world):
     assert sorted(got) == sorted(want)
     for m in want:
         assert vars(got[m]) == vars(want[m]), m
-    assert strategy_kinds() == ["identity", "signsgd", "stc", "threesfc",
-                                "topk"]
+    assert strategy_kinds() == ["fedsynth", "identity", "randk", "signsgd",
+                                "stc", "threesfc", "topk"]
     for m, cfg in got.items():
         syn = vision_syn_spec(MNIST_SPEC, cfg) if cfg.kind == "threesfc" \
             else None
@@ -169,6 +174,43 @@ def test_client_encode_matches_reference(world, kind):
         assert set(tw[1].tolist()) == set(np.asarray(jw[1]).tolist())
         np.testing.assert_array_equal(np.sort(tw[1].numpy()),
                                       np.sort(np.asarray(jw[1])))
+
+
+def subnormal_tree():
+    """±subnormals, ±0 and normal values whose means are exact in any
+    summation order, with distinct magnitudes among the kept entries (so
+    the top-k order is unambiguous): at keep_ratio 1/2 STC keeps 4 of each
+    leaf, the three normals and the largest subnormal (-3e-39, +3e-39)."""
+    return {"a": np.array([1e-40, -2e-40, -3e-39, 0.5, -0.25, 0.0, -0.0,
+                           0.125], np.float32),
+            "b": np.array([0.5, -0.25, 0.75, 3e-39, -1e-40, -1e-41, 0.0,
+                           -0.0], np.float32)}
+
+
+SUBNORMAL_KEEP = 0.5
+
+
+@pytest.mark.parametrize("kind", ["signsgd", "stc"])
+def test_subnormal_signs_match_reference_bitwise(kind):
+    u = subnormal_tree()
+    params = {k: np.zeros_like(v) for k, v in u.items()}
+    jout = jmake_strategy(JCompressorConfig(kind=kind,
+                                            keep_ratio=SUBNORMAL_KEEP)) \
+        .client_encode(jax.random.PRNGKey(0), jax.tree.map(jnp.asarray, u),
+                       jax.tree.map(jnp.asarray, params))
+    out = make_strategy(CompressorConfig(kind=kind,
+                                         keep_ratio=SUBNORMAL_KEEP)) \
+        .client_encode(None, params_from_numpy(u, CPU),
+                       params_from_numpy(params, CPU))
+    for g, w in zip(jax.tree.leaves(to_numpy(out.recon)),
+                    jax.tree.leaves(_np(jout.recon))):
+        np.testing.assert_array_equal(g.view(np.uint32), w.view(np.uint32))
+    if kind == "stc":
+        for (tsgn, tidx, tmu), (jsgn, jidx, jmu) in zip(out.wire, jout.wire):
+            np.testing.assert_array_equal(tsgn.numpy().view(np.uint32),
+                                          np.asarray(jsgn).view(np.uint32))
+            np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
+            assert float(tmu) == float(jmu)
 
 
 # ---------------------------------------------------------------------------

@@ -232,15 +232,26 @@ def test_strategy_decode_aggregate_and_mask(world, encoded):
 
 def test_strategy_registry_and_unported_paths(world):
     from repro_torch.core import strategy as S
-    assert S.strategy_kinds() == ["identity", "signsgd", "stc", "threesfc",
-                                  "topk"]
+    assert S.strategy_kinds() == ["fedsynth", "identity", "randk", "signsgd",
+                                  "stc", "threesfc", "topk"]
     with pytest.raises(ValueError, match="already registered"):
         S.register_strategy("threesfc")(type("Dup", (S.CompressionStrategy,),
                                              {}))
-    # the accounted-only methods are not ported yet
-    for kind in ("randk", "fedsynth"):
-        with pytest.raises(ValueError, match="unknown compressor kind"):
-            make_strategy(CompressorConfig(kind=kind))
+    with pytest.raises(ValueError, match="unknown compressor kind"):
+        make_strategy(CompressorConfig(kind="dgc"))
+    # the accounted-only methods have no wire codec; fedsynth no server
+    # decode and no fused aggregate, as in the reference
+    fcfg = CompressorConfig(kind="fedsynth")
+    fedsynth = make_strategy(fcfg, loss_fn=world["tmodel"].syn_loss,
+                             syn_spec=vision_syn_spec(MNIST_SPEC, fcfg))
+    for strat in (make_strategy(CompressorConfig(kind="randk")), fedsynth):
+        with pytest.raises(KeyError, match="no wire codec"):
+            strat.wire_codec(world["tparams"])
+    assert not fedsynth.supports_fused_aggregate
+    with pytest.raises(NotImplementedError, match="no payload decode"):
+        fedsynth.server_decode(None, world["tparams"])
+    with pytest.raises(NotImplementedError, match="fused aggregation"):
+        fedsynth.server_aggregate(world["tparams"], None)
     ident = make_strategy(CompressorConfig(kind="identity",
                                            error_feedback=False))
     codec = ident.wire_codec(world["tparams"])
