@@ -31,11 +31,13 @@ Phases, in order; any failure exits non-zero:
              full prefill shape; B5 and B6 at n = 199,210 and 4 Mi + 5.
 8. B4      — ssd_chunk against its plain version on the card at (b, h, nc,
              Q, P, N) = (2, 8, 2, 8, 32, 16) (the smoke config), (1, 32, 1,
-             32, 64, 128) (a prompt shorter than a chunk) and (4, 32, 16,
-             128, 64, 128) (the full prefill), with decays that
-             underflow, and at (2, 3, 2, 5, 8, 12) (Q off the thread
-             layout); each case twice, bitwise. Tiles off a 16-byte
-             boundary and P, N not multiples of 4 must be refused.
+             32, 64, 128) (a prompt shorter than a chunk), (1, 32, 1, 100,
+             64, 128) (a 100-token prompt: a chunk no multiple of 16) and
+             (4, 32, 16, 128, 64, 128) (the full prefill), with decays that
+             underflow and with dA of both signs, and at (2, 3, 2, 5, 8,
+             12) (Q, P and N off the kernel's tiles); each case twice,
+             bitwise. Tiles off a 16-byte boundary and P, N not multiples
+             of 4 must be refused.
 9. serve   — ``repro_torch.launch.serve.main`` on mamba2-370m at full width
              (48 layers, d_model 1024), batch 4, prompt 2048, 16 tokens,
              ``--ssd-kernel``, with every counter set to 0 just before and
@@ -109,9 +111,11 @@ from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models.build import build_model, vision_syn_spec  # noqa: E402
 from repro_torch.models.cnn import MNIST_SPEC, make_mlp  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 non-tensor FLOP/s
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 non-tensor FLOP/s
+# and dense TF32 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 
 N, K, B, S = 10, 5, 32, 10
 ROUNDS = 3
@@ -125,9 +129,10 @@ B2_ULP = 2.4e-7      # of (|u| + |s·d|): one FMA rounding vs two roundings
 PARAM_TOL = dict(rtol=1e-4, atol=1e-6)
 EF_TOL = dict(rtol=1e-4, atol=1e-5)
 # B4: (b, h, nc, Q, P, N) of the smoke config, a prompt shorter than one
-# chunk, and the full prefill (batch 4, prompt 2048 = 16 chunks of 128)
+# chunk, a 100-token prompt (one chunk of 100, no multiple of 16), and the
+# full prefill (batch 4, prompt 2048 = 16 chunks of 128)
 B4_SHAPES = ((2, 8, 2, 8, 32, 16), (1, 32, 1, 32, 64, 128),
-             (4, 32, 16, 128, 64, 128))
+             (1, 32, 1, 100, 64, 128), (4, 32, 16, 128, 64, 128))
 B4_FULL = B4_SHAPES[-1]
 # the reference's kernel-vs-oracle bound (tests/test_kernels.py)
 B4_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -509,13 +514,16 @@ def phase_frames(dev) -> None:
 # ---------------------------------------------------------------------------
 
 
-def b4_inputs(g: torch.Generator, b, h, nc, Q, P, N, decay_scale=0.2):
+def b4_inputs(g: torch.Generator, b, h, nc, Q, P, N, decay_scale=0.2,
+              signed=False):
     """tests/test_kernels.py's distributions in the kernel layout:
-    xdt = 0.1·N(0,1), dA = −scale·softplus(N), B and C = 0.5·N."""
+    xdt = 0.1·N(0,1), dA = −scale·softplus(N), B and C = 0.5·N; with
+    ``signed``, dA = scale·N (decays and growths mixed)."""
     dev = g.device
     xdt = 0.1 * torch.randn((b, h, nc, Q, P), generator=g, device=dev)
-    dA = -decay_scale * torch.nn.functional.softplus(
-        torch.randn((b, h, nc, Q), generator=g, device=dev))
+    dA = torch.randn((b, h, nc, Q), generator=g, device=dev)
+    dA = (decay_scale * dA if signed
+          else -decay_scale * torch.nn.functional.softplus(dA))
     B = 0.5 * torch.randn((b, nc, Q, N), generator=g, device=dev)
     C = 0.5 * torch.randn((b, nc, Q, N), generator=g, device=dev)
     return xdt, dA, B, C
@@ -561,8 +569,14 @@ def phase_b4(dev) -> float:
                        f"{shape}, dA = -30 softplus")
         print(f"  {shape} with decays that underflow (dA = -30 softplus): "
               f"max_abs_err={err:.3e}")
-    # a Q that is no multiple of 4 or of the 8 x 32 thread layout (edge
-    # rows clamped) and narrow P, N; then operands the kernel does not take
+    # dA of both signs: L's entries above 1 as well as below
+    err = check_b4(b4_inputs(g, *B4_FULL, decay_scale=0.05, signed=True),
+                   f"{B4_FULL}, dA = 0.05 N(0, 1)")
+    print(f"  {B4_FULL} with dA of both signs (dA = 0.05 N(0, 1)): "
+          f"max_abs_err={err:.3e}")
+    # a Q that is no multiple of 4 or of the kernel's 16-row tiles and a P
+    # and N off its 16- and 8-wide tiles (edges zero-padded); then operands
+    # the kernel does not take
     odd = (2, 3, 2, 5, 8, 12)
     err = check_b4(b4_inputs(g, *odd), f"{odd}")
     print(f"  (b,h,nc,Q,P,N)={odd}: max_abs_err={err:.3e}")
@@ -1086,21 +1100,26 @@ def print_profile(label: str, prof: dict) -> None:
         print(f"    top: {t / 1e3:.3f} ms  {cnt:5d}x  {key[:90]}")
 
 
-def b4_flops(b, h, nc, Q, P, N) -> int:
-    """The f32 operations B4's outputs need: C·Bᵀ once per (b, chunk) over
-    its lower triangle (B and C are shared by the heads); per cell, L's
-    lower triangle (cs_i − cs_j, exp, ⊙ C·Bᵀ), S·xdt over the lower
-    triangle, xdt ⊙ w and the dense state product, the cumsum and the
-    exps of w and decay."""
+def b4_flops(b, h, nc, Q, P, N) -> tuple:
+    """The operations B4's outputs need, as (products, the rest). The
+    products: C·Bᵀ once per (b, chunk) over its lower triangle (B and C
+    are shared by the heads), per cell S·xdt over the lower triangle and
+    the dense state product. The rest, per cell: L's lower triangle (cs_i
+    − cs_j, exp, ⊙ C·Bᵀ), xdt ⊙ w, the cumsum and the exps of w and
+    decay."""
     tri = Q * (Q + 1) // 2
-    per_cell = (3 * tri + 2 * P * tri + Q * P + 2 * Q * P * N + 4 * Q)
-    return b * nc * 2 * N * tri + b * h * nc * per_cell
+    cells = b * h * nc
+    products = b * nc * 2 * N * tri + cells * (2 * P * tri + 2 * Q * P * N)
+    return products, cells * (3 * tri + Q * P + 4 * Q)
 
 
 def b4_time_row(dev, launched: int, err: float) -> dict:
     """B4 at the full prefill shape: the kernel in a CUDA graph and eagerly,
     its plain version, and its bound from the shapes (no single PyTorch
-    call gives the three outputs: no library time)."""
+    call gives the three outputs: no library time). The bound counts the
+    products at the TF32 tensor-core rate, three times over (the kernel's
+    3xTF32 split), and the rest at the f32 rate; the bound with every
+    operation on the f32 pipe is printed beside it."""
     b, h, nc, Q, P, N = B4_FULL
     inputs = b4_inputs(gen(dev, 29), *B4_FULL)
     kern = lambda: ssd_mod.ssd_chunk(*inputs)
@@ -1110,19 +1129,27 @@ def b4_time_row(dev, launched: int, err: float) -> dict:
     # (b, chunk))
     nbytes = 4 * (cells * (Q * P + Q) + 2 * b * nc * Q * N
                   + cells * (Q * P + P * N + Q))
-    flops = b4_flops(b, h, nc, Q, P, N)
+    products, rest = b4_flops(b, h, nc, Q, P, N)
+    flops = products + rest
     # the dense per-cell work of the TPU kernel and of this one, printed
     # beside the bound but not used for it
     dense = cells * (2 * Q * Q * N + 2 * Q * Q * P + 2 * Q * P * N)
     kern_ms = graph_ms(kern, reps=20, replays=11)
     eager_ms = call_ms(kern, reps=50)
     plain_ms = graph_ms(plain, reps=20, replays=11)
-    b_ms, b_by = bound_ms(nbytes, flops)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (3 * products / TF32_FLOP_PER_S + rest / F32_FLOP_PER_S) * 1e3
+    b_ms, b_by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                  else (t_ops, "operations"))
+    f32_ms, f32_by = bound_ms(nbytes, flops)
     print(f"  ssd_chunk at (b,h,nc,Q,P,N)={B4_FULL}: kernel_ms={kern_ms:.6f} "
           f"(eager call {eager_ms:.6f}) bound_ms={b_ms:.6f} ({b_by}; "
-          f"{nbytes} B, {flops} FLOP; the dense work, {dense} FLOP, would "
-          f"take {bound_ms(nbytes, dense)[0]:.6f} ms) plain_ms={plain_ms:.6f} "
-          f"library_ms=none launches_per_prefill={SERVE_LAYERS}")
+          f"{nbytes} B, {products} FLOP of products as 3xTF32 "
+          f"{3 * products / TF32_FLOP_PER_S * 1e3:.6f} ms, {rest} other "
+          f"FLOP) bound on the f32 pipe {f32_ms:.6f} ({f32_by}; the dense "
+          f"work, {dense} FLOP, would take {bound_ms(nbytes, dense)[0]:.6f} "
+          f"ms) plain_ms={plain_ms:.6f} library_ms=none "
+          f"launches_per_prefill={SERVE_LAYERS}")
     return {"name": "ssd_chunk", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
             "replaces": "src/repro/kernels/ssd_chunk.py:57",

@@ -9,9 +9,10 @@ Replaces the TPU kernel ``ssd_chunk_call`` of the JAX package
     state  = (xdt ⊙ exp(cs[-1] − cs))ᵀ · B     (P, N) end-of-chunk state
     decay  = exp(cs)                           (Q,)   incoming-state multiplier
 
-The CUDA source is ``csrc/ssd_chunk.cu``: one block per cell, B, C and xdt
-staged in shared memory, three register-tiled f32 products, bound by f32
-operations (see the source's note).
+The CUDA source is ``csrc/ssd_chunk.cu``: one block per (batch, chunk,
+group of heads), C·Bᵀ formed once per block over its lower triangle, the
+three products on the tensor cores as 3xTF32 (f32-class results), B, C
+and each head's xdt staged with ``cp.async`` (see the source's note).
 
 ``ssd_chunk(xdt, dA, B, C)`` runs the plain PyTorch version for tensors on
 the CPU and launches the kernel for tensors on a CUDA device; there is no

@@ -2,12 +2,19 @@
 
 There is no ncu on the card machine, so this script cuts the kernel
 instead: it builds ``csrc/ssd_chunk.cu`` with ``-DSSD_CUT=1``, ``2`` and
-``3`` (copies that return just before product (1), (2) and (3)) and as it
-is, times each at the full mamba2-370m prefill shape with CUDA events, and
-prints the differences (staging + cumsum, then each product) with each
-build's registers and the whole kernel's SASS instruction counts. The cut
-copies write partial outputs; only the whole kernel is checked against
-the plain version. The builds go to ``build/ssd_chunk_breakdown/``.
+``3`` (copies cut after the staging and cumsums of every head, after C·Bᵀ
+once per head group, and after S·xdt over the heads) and as it is (the
+state product over the heads added), times each at the full mamba2-370m
+prefill shape with CUDA events, and prints the differences with each
+build's registers and spills, and the whole kernel's SASS instruction
+counts: ``HMMA`` shows the products on the tensor cores, ``LDGSTS`` the
+``cp.async`` staging, ``FFMA`` what is left on the f32 pipe. The cut copies write partial outputs; only the
+whole kernel is checked against the plain version. Last, it times a
+kernel of nothing but ``mma.sync`` TF32 products (8 warps per SM, 8
+independent tiles in each of 3 passes, as B4 issues them) and sets B4's
+own count of ``mma.sync`` at the shape (from its tiling: the 3xTF32 split,
+the diagonal tiles' upper halves and the edge padding included) against
+that rate. The builds go to ``build/ssd_chunk_breakdown/``.
 
     PYTHONPATH=src python3 -m repro_torch.kernels.ssd_chunk_breakdown \
         [--shape b h nc Q P N]
@@ -29,14 +36,85 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ssd_chunk as ssd_mod
 
 # SSD_CUT of each build, and the part it adds to the one before, in order
-PARTS = ((1, "staging + cumsum"), (2, "product (1) C.B^T"),
-         (3, "product (2) S.xdt"), (0, "product (3) (xdt.w)^T.B"))
-SASS_OPS = r"\b(LDS(?:\.\w+)*|LDG(?:\.\w+)*|STS|STG(?:\.\w+)*|FFMA|FMUL|BRA|MUFU\.\w+)\b"
+PARTS = ((1, "staging + cumsum"), (2, "C.B^T once per head group"),
+         (3, "S.xdt over the heads"), (0, "state (xdt.w)^T.B over the heads"))
+SASS_OPS = (r"\b(HMMA(?:\.\w+)*|LDGSTS(?:\.\w+)*|LDGDEPBAR|DEPBAR(?:\.\w+)*"
+            r"|LDS(?:\.\w+)*|LDG(?:\.\w+)*|STS(?:\.\w+)*|STG(?:\.\w+)*"
+            r"|FFMA|FMUL|FADD|BAR(?:\.\w+)*|BRA|MUFU\.\w+)\b")
+
+
+# a kernel of nothing but mma.sync m16n8k8 TF32 products: each warp runs
+# `iters` rounds of 3 passes over 8 independent accumulators
+MMA_RATE_SRC = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+__global__ void mma_rate(float* out, int iters) {
+  uint32_t a[4], b[8][2];
+  for (int e = 0; e < 4; ++e) a[e] = 0x3f800000u + (threadIdx.x + e) * 8192u;
+  for (int n = 0; n < 8; ++n) { b[n][0] = a[n & 3]; b[n][1] = a[(n + 1) & 3]; }
+  float acc[8][4] = {};
+  for (int i = 0; i < iters; ++i)
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+            : "+f"(acc[n][0]), "+f"(acc[n][1]), "+f"(acc[n][2]),
+              "+f"(acc[n][3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[n][0]),
+              "r"(b[n][1]));
+  float s = 0.0f;
+  for (int n = 0; n < 8; ++n)
+    for (int e = 0; e < 4; ++e) s += acc[n][e];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int mma_rate_launch(float* out, int blocks, int iters,
+                               void* stream) {
+  mma_rate<<<blocks, 256, 0, (cudaStream_t)stream>>>(out, iters);
+  return (int)cudaGetLastError();
+}
+"""
+MMA_RATE_ITERS = 2000
+MMA_RATE_PER_WARP = 24        # mma.sync per round
+
+
+def kernel_mmas(b, h, nc, Q, P, N, sms) -> int:
+    """The mma.sync instructions B4 issues at this shape: its tiling in
+    ``csrc/ssd_chunk.cu`` (groups of G heads per block, C·Bᵀ per block in
+    16 x 32 units, S·xdt per warp over a short and a long row tile and
+    half the column tiles, 4 at a time, the state in 32 x 32 units), each
+    tile product three times (3xTF32)."""
+    Qp, Np, Pp = -(-Q // 16) * 16, -(-N // 8) * 8, -(-P // 16) * 16
+    G = 16
+    while G > 1 and 10 * b * nc * (-(-h // G)) < 9 * sms:
+        G //= 2
+    ntq, npt = Qp // 16, Pp // 8
+    cb = sum((i + 2) // 2 for i in range(ntq)) * 4 * (Np // 8)
+    y = 0
+    for warp in range(8):
+        ra, rb = warp >> 1, ntq - 1 - (warp >> 1)
+        if ra > rb:
+            continue
+        nper = (npt + 1) // 2
+        first = (warp & 1) * nper
+        chunks = -(-(min(first + nper, npt) - first) // 4)
+        two = 2 * (ra + 1) if ra != rb else 0
+        y += chunks * 4 * (2 * two + (2 * (rb + 1) - two))
+    state = -(-(Pp // 16) // 2) * -(-(Np // 8) // 4) * 8 * (Qp // 8)
+    return 3 * (b * nc * -(-h // G) * cb + b * h * nc * (y + state))
+
+
+def ptxas_info(log: str) -> list:
+    """The kernel's registers and spills from ``-Xptxas -v``."""
+    return [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
+            if "registers" in ln or "spill" in ln]
 
 
 def build_cuts(out_dir: str) -> dict:
     """One ``nvcc`` per SSD_CUT into ``out_dir``, all started together;
-    {cut: (library path, ptxas register lines)}."""
+    {cut: (library path, ptxas register lines)}, and the mma.sync rate
+    kernel's library under "mma_rate"."""
     src = str(_build.CSRC / "ssd_chunk.cu")
     procs = {}
     for cut, _ in PARTS:
@@ -46,13 +124,28 @@ def build_cuts(out_dir: str) -> dict:
              "-Xptxas", "-v", "-o", lib, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     out = {}
+    rate_src = os.path.join(out_dir, "mma_rate.cu")
+    with open(rate_src, "w") as f:
+        f.write(MMA_RATE_SRC)
+    procs["mma_rate"] = (os.path.join(out_dir, "libmma_rate.so"),
+                         subprocess.Popen(
+        [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o",
+         os.path.join(out_dir, "libmma_rate.so"), rate_src],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     for cut, (lib, p) in procs.items():
         log, _ = p.communicate()
         if p.returncode:
             raise RuntimeError(f"nvcc -DSSD_CUT={cut}:\n{log}")
-        out[cut] = (lib, [ln.split(":", 1)[-1].strip()
-                          for ln in log.splitlines() if "registers" in ln])
+        out[cut] = (lib, ptxas_info(log))
     return out
+
+
+def kernel_sass(sass: str) -> str:
+    """The SASS of ``ssd_chunk_kernel`` alone."""
+    for part in sass.split("Function : ")[1:]:
+        if "ssd_chunk_kernel" in part.split("\n", 1)[0]:
+            return part
+    raise RuntimeError("no ssd_chunk_kernel in the library's SASS")
 
 
 def launcher(lib_path: str):
@@ -135,7 +228,23 @@ def main(argv=None) -> int:
                           capture_output=True, text=True).stdout
     print("  SASS instructions of the whole kernel:",
           dict(sorted(collections.Counter(
-              re.findall(SASS_OPS, sass)).items())))
+              re.findall(SASS_OPS, kernel_sass(sass))).items())))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rate = ctypes.CDLL(libs["mma_rate"][0]).mma_rate_launch
+    rate.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_void_p]
+    rate.restype = ctypes.c_int
+    sink = torch.empty(sms * 256, device=dev)
+    rate_ms = time_ms(lambda: rate(sink.data_ptr(), sms, MMA_RATE_ITERS,
+                                   torch.cuda.current_stream().cuda_stream),
+                      reps=3, trials=5)
+    per_s = sms * 8 * MMA_RATE_ITERS * MMA_RATE_PER_WARP / (rate_ms * 1e-3)
+    mmas = kernel_mmas(b, h, nc, Q, P, N, sms)
+    print(f"  mma.sync m16n8k8 TF32 alone, 8 warps per SM: {per_s:.4e} per "
+          f"s ({per_s * 2048 / 1e12:.1f} TFLOP/s); B4 issues {mmas} "
+          f"({mmas * 2048 / 1e9:.3f} GFLOP of TF32 products), which at "
+          f"that rate take {mmas / per_s * 1e3:.4f} ms: "
+          f"{mmas / per_s * 1e3 / prev:.3f} of the whole kernel's time")
     return 0 if ok else 1
 
 
