@@ -1,0 +1,183 @@
+"""Profile one main-path round of the PyTorch port on one CUDA card, and time
+kernels B1 and B2 on its shapes.
+
+    python3 scripts/torch_round_profile.py [--root DIR] [--label NAME]
+                                           [--no-pdl]
+
+The round is the one ``chip_smoke.py`` drives: 3SFC with EF on the paper
+MLP (d = 199,210), N=10 clients, K=5 local steps, B=32, S=10 encoder steps,
+float mode, from params and batches made from a fixed seed. It prints one
+JSON line with
+
+- B1 (``fused_cosine``) and B2 (``ef_update``) on one (d,) vector pair, and
+  the front end's tree calls (``ops.tree_fused_stats``,
+  ``ops.tree_ef_update``) on the MLP's 6 leaves: device time per call, 200
+  calls in a CUDA graph, median of 21 replays;
+- after two warm rounds, the round's wall time (median of 3) and, from
+  ``torch.profiler`` over one more round, its device kernel time, its
+  device kernels and copies, and B1's and B2's kernels among them.
+
+Both measurements are ``repro_torch.profiling``'s, as ``chip_smoke.py``
+takes them; the helper is loaded from this checkout whatever ``--root``
+names.
+
+``--root`` names the checkout whose ``src/repro_torch`` is measured (this
+one by default), so that two versions can be compared in turns within one
+call on one card, one process each::
+
+    for r in parent . . parent; do
+        python3 scripts/torch_round_profile.py --root $r --label $r
+    done
+
+``--no-pdl`` builds that checkout's B1 and B2 sources with the launch
+attribute for programmatic dependent launch taken out (the one line
+``cfg.numAttrs = 1;`` of each ``launch()`` made ``0``; the
+``griddepcontrol.wait`` in the kernels then returns at once), into
+``build/kernels_no_pdl/``, and measures with those: the trial that chose to
+launch with it.
+
+It needs a CUDA device and raises without one.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.abspath(os.path.join(HERE, os.pardir))
+N, K, B, S = 10, 5, 32, 10
+MLP_D = 199_210
+# B1's and B2's kernels, by the names of the leaf-table kernels and of the
+# two-pass B1 and one-vector B2 before them
+KERNELS = {"fused_cosine": ("fused_cosine_table", "fused_cosine_partials",
+                            "fused_cosine_finish"),
+           "ef_update": ("ef_update_table", "ef_update_kernel")}
+PDL_LINE = "cfg.numAttrs = 1;"
+
+
+def load_profiling():
+    """``repro_torch/profiling.py`` of this checkout, under a name of its
+    own (it imports only torch)."""
+    path = os.path.join(REPO, "src", "repro_torch", "profiling.py")
+    spec = importlib.util.spec_from_file_location("_round_profiling", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def use_no_pdl_builds(_build) -> None:
+    """Build B1's and B2's sources without the PDL launch attribute and
+    make ``_build.load`` return those libraries."""
+    out = os.path.join(REPO, "build", "kernels_no_pdl")
+    os.makedirs(out, exist_ok=True)
+    procs = {}
+    for name in ("fused_cosine", "ef_update"):
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        if src.count(PDL_LINE) != 1:
+            raise RuntimeError(f"{name}.cu has {src.count(PDL_LINE)} lines "
+                               f"{PDL_LINE!r}, not one: no PDL to take out")
+        cu = os.path.join(out, f"{name}.cu")
+        with open(cu, "w") as f:
+            f.write(src.replace(PDL_LINE, "cfg.numAttrs = 0;"))
+        lib = os.path.join(out, f"lib{name}.so")
+        procs[name] = (subprocess.Popen(
+            [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", lib, cu],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            lib)
+    for name, (p, lib) in procs.items():
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc {name}.cu without PDL:\n{log}")
+        _build._LIBS[name] = ctypes.CDLL(lib)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=REPO)
+    ap.add_argument("--label", default=None)
+    ap.add_argument("--no-pdl", action="store_true")
+    args = ap.parse_args(argv)
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, os.path.join(root, "src"))
+
+    import torch
+
+    from repro_torch.configs.base import CompressorConfig, FLConfig
+    from repro_torch.configs.run import RunConfig
+    from repro_torch.core import flat
+    from repro_torch.core.strategy import make_strategy
+    from repro_torch.core.threesfc import SynData, init_syn
+    from repro_torch.fl.round import build_fl_round, fl_init
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import ef_update as ef_mod
+    from repro_torch.kernels import fused_cosine as fc_mod
+    from repro_torch.models.build import vision_syn_spec
+    from repro_torch.models.cnn import MNIST_SPEC, make_mlp
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch_round_profile.py needs a CUDA device")
+    prof = load_profiling()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    if args.no_pdl:
+        use_no_pdl_builds(_build)
+    _build.build_all(("fused_cosine", "ef_update"))
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    model = make_mlp(MNIST_SPEC)
+    x = torch.randn(MLP_D, generator=g, device=dev)
+    y = torch.randn(MLP_D, generator=g, device=dev)
+    s = torch.tensor([0.37], device=dev)
+    a, b = model.init(g), model.init(g)
+    if sum(t.numel() for t in flat.tree_leaves(a)) != MLP_D:
+        raise AssertionError("not the paper MLP")
+    kernel_ms = {
+        "fused_cosine": prof.graph_ms(lambda: fc_mod.fused_cosine(x, y)),
+        "ef_update": prof.graph_ms(lambda: ef_mod.ef_update(x, y, s)),
+        "tree_fused_stats": prof.graph_ms(lambda: ops.tree_fused_stats(a, b)),
+        "tree_ef_update": prof.graph_ms(lambda: ops.tree_ef_update(a, b, s))}
+
+    comp = CompressorConfig(kind="threesfc", syn_steps=S, syn_lr=0.1)
+    strategy = make_strategy(comp, loss_fn=model.syn_loss,
+                             syn_spec=vision_syn_spec(MNIST_SPEC, comp),
+                             local_lr=0.01)
+    one_round = build_fl_round(model.loss, strategy, RunConfig(
+        fl=FLConfig(num_clients=N, local_steps=K, local_lr=0.01,
+                    local_batch=B, compressor=comp)))
+    state = fl_init(model.init(g), N, strategy)
+    batches = {"x": torch.rand((N, K, B, 28, 28, 1), generator=g, device=dev),
+               "y": torch.randint(0, 10, (N, K, B), generator=g, device=dev)}
+    syns = [init_syn(g, strategy.syn_spec) for _ in range(N)]
+    syn0 = SynData(*[torch.stack(ts) for ts in zip(*syns)])
+
+    def run():
+        return one_round(state, batches, 0, syn0=syn0)
+
+    for _ in range(2):
+        run()
+    names = [k for keys in KERNELS.values() for k in keys]
+    r = prof.round_profile(run, names)
+    per_kernel = {}
+    for family, keys in KERNELS.items():
+        hits = [r["per_kernel_us"][k] for k in keys if k in r["per_kernel_us"]]
+        per_kernel[family] = {"launches": sum(c for _, c in hits),
+                              "device_us": sum(t for t, _ in hits)}
+    print(json.dumps({
+        "label": args.label or root, "device": torch.cuda.get_device_name(0),
+        "pdl": "off" if args.no_pdl else "as built", "kernel_ms": kernel_ms,
+        "round_wall_ms": r["round_wall_ms"], "walls_ms": r["walls_ms"],
+        "round_device_ms": r["round_device_ms"],
+        "device_launches": r["device_launches"], "kernels": per_kernel}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

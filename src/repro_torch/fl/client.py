@@ -31,16 +31,23 @@ def _value_and_grad(loss_fn: LossFn, params: PyTree, batch: PyTree
 
 def _grad_microbatched(loss_fn: LossFn, params: PyTree, batch: PyTree,
                        num_micro: int) -> Tuple[torch.Tensor, PyTree]:
-    """value_and_grad, optionally accumulated over leading-dim slices."""
+    """value_and_grad, optionally accumulated over leading-dim slices.
+
+    The accumulator starts from f32 zeros, as the reference's does, so the
+    grads come back f32 whatever the parameters' dtype."""
     if num_micro <= 1:
         return _value_and_grad(loss_fn, params, batch)
     mb = tree_leaves(batch)[0].shape[0] // num_micro
-    tot, acc = None, None
+    acc = flat.tree_map(
+        lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+        params)
+    tot = torch.zeros((), dtype=torch.float32,
+                      device=tree_leaves(params)[0].device)
     for i in range(num_micro):
         sl = flat.tree_map(lambda x: x[i * mb:(i + 1) * mb], batch)
         v, g = _value_and_grad(loss_fn, params, sl)
-        tot = v if tot is None else tot + v
-        acc = g if acc is None else flat.tree_add(acc, g)
+        tot = tot + v
+        acc = flat.tree_add(acc, g)
     scale = 1.0 / num_micro
     return tot * scale, flat.tree_scale(acc, scale)
 

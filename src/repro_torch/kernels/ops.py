@@ -16,13 +16,16 @@
   threshold select through kernel B6 (``kernels.topk_mask``). Both kernels
   decide signs and thresholds with subnormals flushed, as the reference.
 
-Both tree forms stream the leaves in lockstep chunks of at most
-``TREE_CHUNK_ELEMS`` elements, and each chunk is one kernel launch.
-Adjacent small leaves are concatenated (``torch.cat``) into one chunk and
-larger ones are walked by slices, so a tree smaller than one chunk (the
-MLP's 199,210 elements) is copied whole into one buffer per operand before
-the kernel reads it: the traffic is about three times the kernel's own
-read, as in the reference, which concatenates the same way.
+On a CUDA device both tree forms hand the raveled f32 leaves to the
+kernels' leaf-table entries (``fused_cosine_leaves``, ``ef_update_leaves``;
+``kernels/leaf_table.py``): one launch per table of up to 64 leaves, each
+leaf read (and B2's output written) where it lies, so a call on the MLP's
+6 leaves is one device kernel that moves only the kernel's own bytes. B1's
+launches chain their triples inside the kernel; B2 writes every leaf into
+one output buffer. On the CPU they keep the reference's route: lockstep
+chunks of at most ``TREE_CHUNK_ELEMS`` elements, adjacent small leaves
+concatenated (``torch.cat``) into one chunk and larger ones walked by
+slices, each chunk one call of the plain version.
 """
 from __future__ import annotations
 
@@ -43,7 +46,13 @@ TREE_CHUNK_ELEMS = 1 << 22
 
 
 def _ravel_f32(leaf: torch.Tensor) -> torch.Tensor:
-    return leaf.reshape(-1).to(torch.float32).contiguous()
+    # each step only where it changes something: the main path's leaves are
+    # contiguous f32 already, and every call here is host time per launch
+    if leaf.dim() != 1:
+        leaf = leaf.reshape(-1)
+    if leaf.dtype != torch.float32:
+        leaf = leaf.to(torch.float32)
+    return leaf if leaf.is_contiguous() else leaf.contiguous()
 
 
 def _cat(parts: List[torch.Tensor]) -> torch.Tensor:
@@ -125,10 +134,16 @@ def optimal_scale(target: torch.Tensor, direction: torch.Tensor,
     return d / (yy + eps)
 
 
+def _on_card(leaves: Sequence[torch.Tensor]) -> bool:
+    return bool(leaves) and leaves[0].device.type == "cuda"
+
+
 def _stream_stats(a_leaves: Sequence[torch.Tensor],
                   b_leaves: Sequence[torch.Tensor]) -> torch.Tensor:
     ra = [_ravel_f32(l) for l in a_leaves]
     rb = [_ravel_f32(l) for l in b_leaves]
+    if _on_card(ra):
+        return _fc.fused_cosine_leaves(ra, rb)
     total = None
     for chunk in _chunk_plan([v.numel() for v in ra], TREE_CHUNK_ELEMS):
         part = _fc.fused_cosine(_gather_chunk(ra, chunk),
@@ -174,10 +189,11 @@ class _TreeFusedStats(torch.autograd.Function):
 def tree_fused_stats(a_tree: PyTree, b_tree: PyTree) -> torch.Tensor:
     """(3,) f32 = [a·b, ‖a‖², ‖b‖²] over whole trees.
 
-    One B1 launch per chunk of ``_chunk_plan``; the per-chunk triples are
-    summed in f32. A chunk of several leaves is concatenated before the
-    launch (see the module docstring). Mixed-dtype trees are cast to f32 leaf by leaf; a and b
-    must share structure and leaf shapes (``ValueError`` otherwise).
+    On the card one B1 launch per table of leaves, read in place; on the
+    CPU one plain call per chunk of ``_chunk_plan``, the triples summed in
+    f32 (see the module docstring). Mixed-dtype trees are cast to f32 leaf
+    by leaf; a and b must share structure and leaf shapes (``ValueError``
+    otherwise).
     """
     a_leaves, b_leaves = _check_lockstep(a_tree, b_tree)
     return _TreeFusedStats.apply(len(a_leaves), *a_leaves, *b_leaves)
@@ -199,14 +215,21 @@ def ef_update(u: torch.Tensor, d: torch.Tensor, s) -> torch.Tensor:
 def tree_ef_update(u_tree: PyTree, d_tree: PyTree, s) -> PyTree:
     """EF residual e' = u − s·d over whole trees, one streaming pass.
 
-    Streams the same lockstep chunks as ``tree_fused_stats`` through kernel
-    B2 (one launch per chunk, not per leaf; a chunk of several leaves is
-    concatenated first) and slices the outputs back into leaves. Output leaves are f32 in u's shapes. Not differentiable.
+    On the card one B2 launch per table of leaves, read and written in
+    place (one output buffer); on the CPU the same lockstep chunks as
+    ``tree_fused_stats``, concatenated, through the plain version and
+    sliced back into leaves. Output leaves are f32 in u's shapes. Not
+    differentiable.
     """
     u_leaves, d_leaves = _check_lockstep(u_tree, d_tree)
     _, treedef = tree_flatten(u_tree)
     ru = [_ravel_f32(l) for l in u_leaves]
     rd = [_ravel_f32(l) for l in d_leaves]
+    if _on_card(ru):
+        outs = _ef.ef_update_leaves(ru, rd, torch.as_tensor(
+            s, dtype=torch.float32, device=ru[0].device))
+        return tree_unflatten(treedef, [o.reshape(l.shape)
+                                        for o, l in zip(outs, u_leaves)])
     pieces: List[List[torch.Tensor]] = [[] for _ in u_leaves]
     for chunk in _chunk_plan([v.numel() for v in ru], TREE_CHUNK_ELEMS):
         out = ef_update(_gather_chunk(ru, chunk), _gather_chunk(rd, chunk), s)

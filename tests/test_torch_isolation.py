@@ -25,7 +25,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, "chip_smoke.py"),
+           os.path.join(REPO, "scripts", "torch_round_profile.py")]
     for dirpath, _, names in os.walk(PORT):
         out += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return sorted(out)

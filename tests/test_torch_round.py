@@ -24,6 +24,7 @@ from repro.core import threesfc as jthreesfc
 from repro.core.strategy import make_strategy as jmake_strategy
 from repro.data.partition import dirichlet_partition as jpartition
 from repro.data.synthetic import make_class_image_dataset as jdataset
+from repro.fl import client as jclient
 from repro.fl.round import build_fl_round as jbuild_round
 from repro.fl.round import fl_init as jfl_init
 from repro.models.build import vision_syn_spec as jsyn_spec
@@ -34,7 +35,9 @@ from repro_torch.configs.run import RunConfig
 from repro_torch.convert import params_from_numpy, to_numpy
 from repro_torch.core.strategy import make_strategy
 from repro_torch.core.threesfc import SynData
+from repro_torch.core import flat
 from repro_torch.data.partition import dirichlet_partition
+from repro_torch.fl import client
 from repro_torch.fl.engine import RoundEngine, device_pools, vision_batcher
 from repro_torch.fl.round import build_fl_round, fl_init
 from repro_torch.launch import train
@@ -173,6 +176,91 @@ def test_fedavg_round_matches_reference(world):
     (jm, tm), = metrics
     np.testing.assert_allclose(tm.cosine.numpy(), 1.0)
     np.testing.assert_allclose(float(tm.loss), float(jm.loss), rtol=1e-5)
+
+
+def _bf16_ulp(x: np.ndarray) -> np.ndarray:
+    """The spacing of bf16 numbers (8 significant bits) at |x|."""
+    mag = np.maximum(np.abs(x), np.finfo(np.float32).tiny)
+    return np.exp2(np.floor(np.log2(mag)) - 7)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_microbatched_grad_matches(world, dtype):
+    """Mirror of tests/test_fl_round.py::test_microbatched_grad_matches, and
+    the same client against the reference at f32 and at bf16. The
+    microbatch accumulator starts from f32 zeros on both sides, so the
+    grads are f32 for bf16 parameters too. At bf16 the two frameworks'
+    bf16 matmuls round apart, so each slice's grads may differ: the mean
+    of the slices is held, element by element, within the mean of the
+    slices' own gaps (plus four f32 roundings), a bound that accumulating
+    in bf16 (the fault) falls outside in every leaf; and the update of one
+    local step is held to one bf16 ulp at its leaf's largest local
+    weight."""
+    jparams, tparams = world["params"], world["tparams"]
+    jb = jax.tree.map(lambda x: x[0], world["batches"])
+    tb = {k: v[0] for k, v in world["tbatches"].items()}
+    if dtype == "bf16":
+        jparams = jax.tree.map(lambda p: p.astype(jnp.bfloat16), jparams)
+        tparams = flat.tree_map(lambda p: p.to(torch.bfloat16), tparams)
+        jb = {**jb, "x": jb["x"].astype(jnp.bfloat16)}
+        tb = {**tb, "x": tb["x"].to(torch.bfloat16)}
+    jmodel_, tmodel = world["model"], make_mlp(MNIST_SPEC)
+    g1, l1 = client.local_train(tmodel.loss, tparams, tb, 0.05, num_micro=1)
+    g4, l4 = client.local_train(tmodel.loss, tparams, tb, 0.05, num_micro=4)
+    if dtype == "f32":
+        np.testing.assert_allclose(float(l1), float(l4), rtol=1e-5)
+        _assert_close(g1, to_numpy(g4), rtol=2e-4, atol=1e-6)
+
+    step_j = jax.tree.map(lambda x: x[0], jb)
+    step_t = {k: v[0] for k, v in tb.items()}
+    jv, jg = jclient._grad_microbatched(jmodel_.loss, jparams, step_j, 4)
+    tv, tg = client._grad_microbatched(tmodel.loss, tparams, step_t, 4)
+    for a, b in zip(jax.tree.leaves(jg), flat.tree_leaves(tg)):
+        assert a.dtype == jnp.float32 and b.dtype == torch.float32
+    assert tv.dtype == torch.float32 and jv.dtype == jnp.float32
+    if dtype == "f32":
+        jg4, _ = jclient.local_train(jmodel_.loss, jparams, jb, 0.05,
+                                     num_micro=4)
+        _assert_close(tg, jg, rtol=1e-4, atol=1e-6)
+        _assert_close(g4, jg4, rtol=1e-4, atol=1e-6)
+        return
+    # each slice's grads on both sides: their gaps bound the mean's, and the
+    # mean accumulated in bf16 (the fault) falls outside that bound
+    mb = step_t["x"].shape[0] // 4
+    gaps, bf16_acc = [], None
+    for i in range(4):
+        _, jgi = jax.value_and_grad(jmodel_.loss)(
+            jparams, jax.tree.map(lambda x: x[i * mb:(i + 1) * mb], step_j))
+        _, tgi = client._value_and_grad(
+            tmodel.loss, tparams,
+            {k: v[i * mb:(i + 1) * mb] for k, v in step_t.items()})
+        gaps.append([np.abs(np.asarray(a, np.float32) - b.float().numpy())
+                     for a, b in zip(jax.tree.leaves(jgi),
+                                     flat.tree_leaves(tgi))])
+        bf16_acc = tgi if bf16_acc is None else flat.tree_add(bf16_acc, tgi)
+    bf16_acc = flat.tree_scale(bf16_acc, 0.25)
+    for leaf, (want, got, fault) in enumerate(zip(
+            jax.tree.leaves(jg), flat.tree_leaves(tg),
+            flat.tree_leaves(bf16_acc))):
+        want = np.asarray(want)
+        bound = (np.mean([g[leaf] for g in gaps], axis=0)
+                 + 2.0 ** -22 * np.abs(want).max())
+        assert np.all(np.abs(got.numpy() - want) <= bound), leaf
+        assert np.any(np.abs(fault.float().numpy() - want) > bound), leaf
+    # one local step: over K steps the two bf16 forwards' roundings compound
+    one_j = jax.tree.map(lambda x: x[:1], jb)
+    one_t = {k: v[:1] for k, v in tb.items()}
+    jg1, _ = jclient.local_train(jmodel_.loss, jparams, one_j, 0.05,
+                                 num_micro=4)
+    tg1, _ = client.local_train(tmodel.loss, tparams, one_t, 0.05,
+                                num_micro=4)
+    for got, want, w0 in zip(flat.tree_leaves(tg1), jax.tree.leaves(jg1),
+                             jax.tree.leaves(jparams)):
+        want = np.asarray(want)
+        w_local = np.asarray(w0, np.float32) - want
+        assert got.dtype == torch.float32
+        assert np.all(np.abs(got.numpy() - want)
+                      <= _bf16_ulp(np.abs(w_local).max()))
 
 
 @pytest.mark.parametrize("alpha,clients,seed", [(0.3, 8, 1), (0.5, 10, 0),
