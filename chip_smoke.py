@@ -19,7 +19,12 @@ Phases, in order; any failure exits non-zero:
              the MLP tree are one device kernel each (no cat, copy, fill or
              memset). B3 (bitpack) bitwise at lengths 0, 1, 31, 32, 33,
              1025, 199,210 and 4 Mi + 5 with planted 0.0, -0.0, NaN and
-             ±inf.
+             ±inf; B3a's tree entry bitwise its plain version on the MLP
+             tree and on a ragged tree of 72 leaves (two tables, the cut
+             inside a leaf, an unaligned leaf), into a section at an odd
+             byte; B3b's frames entry on 1, 3 and 10 signSGD frames, as a
+             list and stacked, and on unaligned frame views; one device
+             kernel per tree pack and per batched unpack.
 4. main path — ``repro_torch.launch.train.main`` at the trainer's defaults
              (MLP on MNIST shapes, 3SFC+EF, N=10, K=5, B=32, S=10) for 3
              rounds, with every launch counter set to 0 just before and read
@@ -28,18 +33,24 @@ Phases, in order; any failure exits non-zero:
              one without must agree; the same round on the CPU (the plain
              versions) must agree with the card's.
 6. codec path — the trainer with ``--wire codec``: signSGD for 3 rounds
-             (B3a and B3b N times per round each, B1 N times, B2 never),
+             (B3a N times per round, B3b once per round for the round's N
+             frames, B1 N times, B2 never), and 3 signSGD codec rounds
+             bitwise those that decode frame by frame,
              then 3SFC for 3 rounds (the main path's launches, and the
              float run's params); then every codec's frame of one payload
              at the MLP's shapes, on the card and on the CPU, byte for byte.
 7. times   — each kernel at the main path's shape (CUDA events), its plain
              version, a one-call PyTorch yardstick where one exists, its
              bound, and the wall and device time (and device kernel count)
-             of one main-path round, of one signSGD codec round and of one
-             FedSynth round; B1's and B2's tree forms on the MLP's 6 leaves
+             of one main-path round, of one signSGD codec round (and of
+             the same round decoding frame by frame) and of one FedSynth
+             round; B1's and B2's tree forms on the MLP's 6 leaves
              beside the old route rebuilt from the same kernel (cat, then
-             one flat call), in turns; B4 at the full prefill shape; B5 and
-             B6 at n = 199,210 and 4 Mi + 5.
+             one flat call), in turns; B3a's tree entry into a frame beside
+             the old route (cat of the leaves, the flat B3a, the frame's
+             cat) and B3b's frames entry on N frames beside N flat calls, in
+             turns, and both flat at 4 Mi + 5; B4 at the full prefill
+             shape; B5 and B6 at n = 199,210 and 4 Mi + 5.
 8. B4      — ssd_chunk against its plain version on the card at (b, h, nc,
              Q, P, N) = (2, 8, 2, 8, 32, 16) (the smoke config), (1, 32, 1,
              32, 64, 128) (a prompt shorter than a chunk), (1, 32, 1, 100,
@@ -84,6 +95,7 @@ kernel's numbers, the list of kernels, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import functools
 import itertools
 import json
 import math
@@ -99,6 +111,7 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 import torch  # noqa: E402
 
+from repro_torch.comm import Codec, frame  # noqa: E402
 from repro_torch.configs.base import (CompressorConfig, FLConfig,  # noqa: E402
                                      get_config)
 from repro_torch.configs.run import RunConfig  # noqa: E402
@@ -114,7 +127,7 @@ from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import bitpack as bp_mod  # noqa: E402
 from repro_torch.kernels import ef_update as ef_mod  # noqa: E402
 from repro_torch.kernels import fused_cosine as fc_mod  # noqa: E402
-from repro_torch.kernels import leaf_table  # noqa: E402
+from repro_torch.kernels import leaf_table, pack_table  # noqa: E402
 from repro_torch.kernels import sign_quant as sq_mod  # noqa: E402
 from repro_torch.kernels import ssd_chunk as ssd_mod  # noqa: E402
 from repro_torch.kernels import topk_mask as tm_mod  # noqa: E402
@@ -165,6 +178,13 @@ EDGE_TAUS = (0.0, 1e-39, 1e-38, FLT_MIN)
 # phase 3's ragged tree: leaves of these sizes in turn, more than one table
 RAGGED_SIZES = (0, 1, 3, 5, 1027)
 RAGGED_LEAVES = 85
+# B3a's ragged tree: 72 leaves, two tables cut inside a leaf, and words
+# that take their bits from several leaves
+B3_RAGGED_SIZES = (1, 7, 31, 33, 2000) * 14 + (0, 5)
+# the frames phase 3 unpacks as one batch, and phase 7 times
+B3_FRAMES = (1, 3, 10)
+B3_SPECIALS = (0.0, -0.0, math.nan, math.inf, -math.inf, 1e-40, -1e-40,
+               -3e-39, -FLT_MIN)
 EF_STEPS = 3
 # vectors of 4 Mi + 5 elements the B5/B6 timing rotates over: 6 x 16.8 MB
 # of inputs, twice the H100's 50 MB L2
@@ -288,9 +308,9 @@ def phase_kernels(dev) -> dict:
     a, b = mlp_tree(g, 1e-3), mlp_tree(g, 1e-3)
     err_b1, err_b2 = check_tree("MLP tree", a, b, s)
     check_tree("ragged tree", *ragged_trees(g), s)
-    check_one_kernel("ops.tree_fused_stats", "fused_cosine_table",
-                     lambda: ops.tree_fused_stats(a, b))
-    check_one_kernel("ops.tree_ef_update", "ef_update_table",
+    check_one_kernel("ops.tree_fused_stats on the MLP tree",
+                     "fused_cosine_table", lambda: ops.tree_fused_stats(a, b))
+    check_one_kernel("ops.tree_ef_update on the MLP tree", "ef_update_table",
                      lambda: ops.tree_ef_update(a, b, s))
     for n in B3_LENGTHS:
         check_b3(torch.randn(n, generator=g, device=dev))
@@ -299,6 +319,7 @@ def phase_kernels(dev) -> dict:
     print(f"  B3 pack_signs/unpack_signs bitwise at n={B3_LENGTHS} and an "
           f"unaligned view, with 0.0, -0.0, NaN, +inf, -inf, ±subnormals and "
           f"-FLT_MIN planted")
+    phase_b3_entries(dev, g)
     return {"fused_cosine": err_b1, "ef_update": err_b2,
             "pack_signs": 0.0, "unpack_signs": 0.0}
 
@@ -371,7 +392,7 @@ def check_one_kernel(label: str, kernel: str, fn) -> None:
     if len(names) != 1 or kernel not in names[0]:
         raise AssertionError(f"{label}: device work {names}, expected one "
                              f"{kernel} kernel")
-    print(f"  {label} on the MLP tree: one device kernel, {names[0]}")
+    print(f"  {label}: one device kernel, {names[0]}")
 
 
 def check_b3(x: torch.Tensor) -> None:
@@ -400,6 +421,141 @@ def check_b3(x: torch.Tensor) -> None:
     if tail and (int(words[-1]) & 0xFFFFFFFF) >> tail != (1 << (32 - tail)) - 1:
         raise AssertionError(f"B3a tail bits not 1 at n={n}: "
                              f"{int(words[-1]) & 0xFFFFFFFF:#010x}")
+
+
+def planted_leaves(g: torch.Generator, sizes) -> list:
+    """f32 leaves of ``sizes`` on ``g``'s device, B3_SPECIALS planted at
+    the head of each in turn."""
+    leaves = []
+    for i, n in enumerate(sizes):
+        x = torch.randn(n, generator=g, device=g.device)
+        for j in range(min(n, len(B3_SPECIALS))):
+            x[j] = B3_SPECIALS[(i + j) % len(B3_SPECIALS)]
+        leaves.append(x)
+    return leaves
+
+
+def check_tree_pack(label: str, leaves: list, offset: int) -> None:
+    """B3a's tree entry bitwise its plain version (the flat plain pack of
+    the concatenation), writing into a section ``offset`` bytes into a
+    buffer and nothing around it, in one launch per table."""
+    d = sum(t.numel() for t in leaves)
+    nb = bp_mod.num_bytes(d)
+    buf = torch.full((offset + nb + 8,), 0x5A, dtype=torch.uint8,
+                     device=leaves[0].device)
+    out = buf[offset:offset + nb]
+    tables = len(pack_table.pack_plan([t.numel() for t in leaves]))
+    reset_counts()
+    bp_mod.pack_signs_tree(leaves, out)
+    launched = counts()
+    want = bp_mod.pack_signs_tree_plain(leaves)
+    torch.cuda.synchronize()
+    if launched != only(pack_signs=tables):
+        raise AssertionError(f"B3a {label}: launches {launched}, expected "
+                             f"{tables}")
+    if not torch.equal(out, want):
+        bad = int(torch.nonzero(out != want)[0])
+        raise AssertionError(f"B3a {label} disagrees at byte {bad}: "
+                             f"{int(out[bad])} vs {int(want[bad])}")
+    if not (bool((buf[:offset] == 0x5A).all())
+            and bool((buf[offset + nb:] == 0x5A).all())):
+        raise AssertionError(f"B3a {label} wrote outside its section")
+    print(f"  B3a tree pack, {label} ({len(leaves)} leaves, d={d}, "
+          f"{tables} launch(es)): bitwise the plain version, into a section "
+          f"at byte {offset}")
+
+
+def sign_frames(codec, params, g: torch.Generator, count: int) -> list:
+    """``count`` signSGD frames of MLP updates with B3_SPECIALS planted,
+    encoded on ``g``'s device."""
+    frames = []
+    sizes = [p.numel() for p in flat.tree_leaves(params)]
+    for c in range(count):
+        vals = iter(planted_leaves(g, sizes))
+        u = flat.tree_map(lambda p: next(vals).reshape(p.shape), params)
+        wire = codec.strategy.client_encode(g, u, params).wire
+        frames.append(codec.encode(wire, round_idx=1, client_idx=c))
+    return frames
+
+
+def check_frames_unpack(label: str, codec, frames) -> None:
+    """B3b's frames entry bitwise its plain version in one launch, and the
+    codec's batch decode bitwise its frame-by-frame decode."""
+    signs_at = codec.spec.section_offsets[0]
+    reset_counts()
+    got = bp_mod.unpack_signs_frames(frames, signs_at, codec.d)
+    launched = counts()
+    want = bp_mod.unpack_signs_frames_plain(frames, signs_at, codec.d)
+    torch.cuda.synchronize()
+    if launched != only(unpack_signs=1):
+        raise AssertionError(f"B3b {label}: launches {launched}, expected 1")
+    if not same_bits(got.contiguous(), want.contiguous()):
+        raise AssertionError(f"B3b {label} disagrees with its plain version")
+    batch = flat.tree_leaves(codec.decode_batch(frames))
+    by_frame = flat.tree_leaves(Codec.decode_batch(codec, frames))
+    if not all(same_bits(a, b) for a, b in zip(batch, by_frame)):
+        raise AssertionError(f"decode_batch {label} differs from the "
+                             f"frame-by-frame decode")
+    print(f"  B3b frames unpack, {label}: bitwise the plain version in one "
+          f"launch; decode_batch bitwise the frame-by-frame decode")
+
+
+def check_frames_chunks(dev, g: torch.Generator) -> None:
+    """B3b on more frames than one launch's table holds: MAX_FRAMES + 3
+    short frames of random bytes (rows of 15 bytes, so they start at every
+    alignment; a 10-byte section of n = 77 at byte 3), bitwise the plain
+    version in two launches."""
+    count, n, offset = bp_mod.MAX_FRAMES + 3, 77, 3
+    frames = torch.randint(0, 256, (count, offset + bp_mod.num_bytes(n) + 2),
+                           generator=g, device=dev, dtype=torch.uint8)
+    reset_counts()
+    got = bp_mod.unpack_signs_frames(frames, offset, n)
+    launched = counts()
+    want = bp_mod.unpack_signs_frames_plain(list(frames), offset, n)
+    torch.cuda.synchronize()
+    if launched != only(unpack_signs=2):
+        raise AssertionError(f"B3b on {count} frames: launches {launched}, "
+                             f"expected 2")
+    if not same_bits(got.contiguous(), want.contiguous()):
+        bad = torch.nonzero(got != want)[0].tolist()
+        raise AssertionError(f"B3b on {count} frames disagrees with its "
+                             f"plain version at (frame, sign) {bad}")
+    print(f"  B3b frames unpack, {count} short frames (n={n}, section at "
+          f"byte {offset}): bitwise the plain version in 2 launches")
+
+
+def phase_b3_entries(dev, g: torch.Generator) -> None:
+    """B3a's tree entry and B3b's frames entry against their plain
+    versions, and one device kernel per call."""
+    mlp = planted_leaves(g, [t.numel() for t in flat.tree_leaves(
+        mlp_tree(g))])
+    check_tree_pack("MLP tree", mlp, 32)
+    ragged = planted_leaves(g, B3_RAGGED_SIZES)
+    ragged[3] = unaligned(ragged[3])
+    check_tree_pack("ragged tree", ragged, 3)
+    codec, _ = codec_payload("signsgd", dev, g)
+    params = make_mlp(MNIST_SPEC).init(g)
+    frames = sign_frames(codec, params, g, max(B3_FRAMES))
+    for count in B3_FRAMES:
+        check_frames_unpack(f"{count} frame(s)", codec, frames[:count])
+    check_frames_unpack(f"{len(frames)} frames stacked", codec,
+                        torch.stack(frames))
+    views = []
+    for c, f in enumerate(frames[:3]):
+        buf = torch.zeros(f.numel() + 4, dtype=torch.uint8, device=dev)
+        views.append(buf[c + 1:c + 1 + f.numel()])
+        views[-1].copy_(f)
+    check_frames_unpack("3 unaligned frame views", codec, views)
+    check_frames_chunks(dev, g)
+    out = torch.empty(codec.spec.section_bytes[0], dtype=torch.uint8,
+                      device=dev)
+    check_one_kernel("bitpack.pack_signs_tree on the MLP tree",
+                     "pack_signs_table",
+                     lambda: bp_mod.pack_signs_tree(mlp, out))
+    check_one_kernel(f"bitpack.unpack_signs_frames on {len(frames)} frames",
+                     "unpack_signs_frames",
+                     lambda: bp_mod.unpack_signs_frames(
+                         frames, codec.spec.section_offsets[0], codec.d))
 
 
 # ---------------------------------------------------------------------------
@@ -514,18 +670,20 @@ def phase_fused(state: FLState, dev):
 # ---------------------------------------------------------------------------
 
 
-def phase_codec_path(out_dir: str, float_state: FLState):
+def phase_codec_path(out_dir: str, float_state: FLState, batches):
     phase("codec path: repro_torch.launch.train.main --wire codec")
     sign_state, launched, wall = run_trainer(
         os.path.join(out_dir, "signsgd"), "signsgd", "codec")
-    # per client per round: one frame packed (B3a) and decoded (B3b), one
-    # efficiency cosine (B1); EF is u − recon, no B2
+    # per client per round: one frame packed (B3a) and one efficiency
+    # cosine (B1); per round one B3b for the N frames; EF is u − recon, no
+    # B2
     want = only(fused_cosine=ROUNDS * N, pack_signs=ROUNDS * N,
-                unpack_signs=ROUNDS * N)
+                unpack_signs=ROUNDS)
     if launched != want:
         raise AssertionError(f"signsgd codec launches {launched}, "
                              f"expected {want}")
     print(f"  signsgd: {ROUNDS} rounds in {wall:.2f} s, launches {launched}")
+    check_batch_decode_rounds(sign_state, batches)
     sfc_state, sfc_launched, wall = run_trainer(
         os.path.join(out_dir, "threesfc"), "threesfc", "codec")
     want = only(fused_cosine=ROUNDS * N * (S + 1), ef_update=ROUNDS * N)
@@ -543,6 +701,51 @@ def phase_codec_path(out_dir: str, float_state: FLState):
     assert_close("threesfc codec vs float params", sfc_state.params,
                  float_state.params, PARAM_TOL)
     return sign_state, launched
+
+
+def frame_by_frame(codec):
+    """``codec`` decoding a round's frames one after another (the base
+    class's ``decode_batch`` and ``recon_batch``), as rounds did before
+    the batch decode."""
+    codec.decode_batch = functools.partial(Codec.decode_batch, codec)
+    codec.recon_batch = functools.partial(Codec.recon_batch, codec)
+    return codec
+
+
+def check_batch_decode_rounds(state: FLState, batches) -> None:
+    """ROUNDS signSGD codec rounds from ``state`` that decode each round's
+    N frames as one batch (one B3b launch), against the same rounds
+    decoding frame by frame (N launches): params, EF and metrics bitwise."""
+    runs = {}
+    for label, by_frame in (("one batch", False), ("frame by frame", True)):
+        one_round = sign_codec_round(state, by_frame)
+        s, out = state, []
+        reset_counts()
+        for r in range(ROUNDS):
+            s, m = one_round(s, batches, r)
+            out.append((s, m))
+        torch.cuda.synchronize()
+        runs[label] = (out, counts())
+    for label, per_round in (("one batch", 1), ("frame by frame", N)):
+        want = only(fused_cosine=ROUNDS * N, pack_signs=ROUNDS * N,
+                    unpack_signs=ROUNDS * per_round)
+        if runs[label][1] != want:
+            raise AssertionError(f"signsgd rounds decoded {label}: launches "
+                                 f"{runs[label][1]}, expected {want}")
+    for r, ((sa, ma), (sb, mb)) in enumerate(zip(runs["one batch"][0],
+                                                  runs["frame by frame"][0])):
+        pairs = list(zip(flat.tree_leaves((sa.params, sa.ef)),
+                         flat.tree_leaves((sb.params, sb.ef))))
+        pairs += [(getattr(ma, f), getattr(mb, f)) for f in
+                  ("loss", "cosine", "payload_floats", "update_norm")]
+        if not all(same_bits(a, b) for a, b in pairs):
+            raise AssertionError(f"signsgd round {r}: the batch decode's "
+                                 f"params, EF or metrics differ from the "
+                                 f"frame-by-frame decode's")
+    print(f"  signsgd: {ROUNDS} rounds decoding each round's {N} frames as "
+          f"one batch are bitwise those decoding frame by frame (params, "
+          f"EF, metrics); launches {runs['one batch'][1]} vs "
+          f"{runs['frame by frame'][1]}")
 
 
 def codec_payload(method: str, dev, g):
@@ -1101,9 +1304,103 @@ def bound_ms(nbytes: int, flops: int) -> tuple:
 
 
 KERNEL_NAMES = ("fused_cosine_table", "ef_update_table",
-                "pack_signs_kernel", "unpack_signs_kernel",
+                "pack_signs_table", "unpack_signs_frames",
                 "ssd_chunk_kernel", "sign_quant_partials", "sign_quant_finish",
                 "topk_mask_partials", "topk_mask_finish")
+
+
+def in_turns(new, old) -> tuple:
+    """([new, new], [old, old]) device times per call in CUDA graphs,
+    taken in turns: old, new, new, old."""
+    old_ms = [graph_ms(old)]
+    new_ms = [graph_ms(new), graph_ms(new)]
+    old_ms.append(graph_ms(old))
+    return new_ms, old_ms
+
+
+def b3_time_extras(dev) -> dict:
+    """B3a's tree entry on the MLP's 6 leaves into a frame's sign section,
+    beside the old route (cat of the leaves, the flat B3a, the frame's
+    cat), with ``SignCodec.encode`` beside; B3b's frames entry on the
+    largest of B3_FRAMES frames beside that many flat calls, with
+    ``decode_batch`` and the frame-by-frame decode beside; each pair in
+    turns in CUDA graphs. Then both flat at 4 Mi + 5, the calls rotating
+    over L2_ROTATE vectors (so each reads device memory), with their plain
+    versions. Bounds: bytes, each input read once, each output written
+    once (no single PyTorch call packs signs: no library time)."""
+    g = gen(dev, 43)
+    codec, wire = codec_payload("signsgd", dev, g)
+    leaves = [t.reshape(-1) for t in flat.tree_leaves(wire[0])]
+    d, nb = codec.d, codec.spec.section_bytes[0]
+    signs_at, scales_at = codec.spec.section_offsets
+    section = torch.empty(codec.nbytes, dtype=torch.uint8,
+                          device=dev)[signs_at:scales_at]
+    header = frame.encode_header(codec.spec, 0, 0, dev)
+    scale_bytes = wire[1].contiguous().view(torch.uint8)
+    reset_counts()
+    bp_mod.pack_signs_tree(leaves, section)
+    per_call = counts()["pack_signs"]
+    new_ms, old_ms = in_turns(
+        lambda: bp_mod.pack_signs_tree(leaves, section),
+        lambda: torch.cat([header, bp_mod.pack_signs(torch.cat(
+            leaves)).view(torch.uint8)[:nb], scale_bytes]))
+    b_ms, b_by = bound_ms(4 * d + nb, d)
+    tree = {"leaves": len(leaves), "d": d, "ms": new_ms[0],
+            "ms_again": new_ms[1], "bound_ms": b_ms, "bound_by": b_by,
+            "old_route_ms": old_ms, "encode_ms": graph_ms(
+                lambda: codec.encode(wire)), "launches_per_call": per_call}
+    print(f"  pack_signs tree ({len(leaves)} leaves, d={d}) into a frame: "
+          f"kernel_ms={new_ms[0]:.6f}, {new_ms[1]:.6f} bound_ms={b_ms:.6f} "
+          f"({b_by}) library_ms=none; old route (cat of the leaves, flat "
+          f"B3a, the frame's cat) {old_ms[0]:.6f}, {old_ms[1]:.6f}; "
+          f"SignCodec.encode {tree['encode_ms']:.6f}; "
+          f"launches_per_call={per_call}")
+    F = max(B3_FRAMES)
+    frames = sign_frames(codec, make_mlp(MNIST_SPEC).init(g), g, F)
+    pad = torch.zeros(4 * bp_mod.num_words(d) - nb, dtype=torch.uint8,
+                      device=dev)
+    words = [torch.cat([f[signs_at:scales_at], pad]).view(torch.int32)
+             for f in frames]
+    reset_counts()
+    bp_mod.unpack_signs_frames(frames, signs_at, d)
+    per_call = counts()["unpack_signs"]
+    new_ms, old_ms = in_turns(
+        lambda: bp_mod.unpack_signs_frames(frames, signs_at, d),
+        lambda: [bp_mod.unpack_signs(w, d) for w in words])
+    b_ms, b_by = bound_ms(F * (nb + 4 * d), F * d)
+    batched = {"frames": F, "d": d, "ms": new_ms[0], "ms_again": new_ms[1],
+               "bound_ms": b_ms, "bound_by": b_by, "flat_calls_ms": old_ms,
+               "decode_batch_ms": graph_ms(lambda: codec.decode_batch(frames)),
+               "decode_by_frame_ms": graph_ms(
+                   lambda: Codec.decode_batch(codec, frames)),
+               "launches_per_call": per_call}
+    print(f"  unpack_signs on {F} frames: kernel_ms={new_ms[0]:.6f}, "
+          f"{new_ms[1]:.6f} bound_ms={b_ms:.6f} ({b_by}) library_ms=none; "
+          f"{F} flat calls {old_ms[0]:.6f}, {old_ms[1]:.6f}; "
+          f"SignCodec.decode_batch {batched['decode_batch_ms']:.6f}, frame "
+          f"by frame {batched['decode_by_frame_ms']:.6f}; "
+          f"launches_per_call={per_call}")
+    n = (1 << 22) + 5
+    xs = [torch.randn(n, generator=g, device=dev) for _ in range(L2_ROTATE)]
+    ws = [bp_mod.pack_signs(x) for x in xs]
+    nx, nw = itertools.cycle(xs).__next__, itertools.cycle(ws).__next__
+    b_ms, b_by = bound_ms(4 * n + 4 * bp_mod.num_words(n), n)
+    at = {}
+    for name, kern, plain in (
+            ("pack_signs", lambda: bp_mod.pack_signs(nx()),
+             lambda: bp_mod.pack_signs_plain(nx())),
+            ("unpack_signs", lambda: bp_mod.unpack_signs(nw(), n),
+             lambda: bp_mod.unpack_signs_plain(nw(), n))):
+        at[name] = {"ms": graph_ms(kern), "call_ms": call_ms(kern),
+                    "plain_ms": graph_ms(plain), "bound_ms": b_ms,
+                    "bound_by": b_by}
+        print(f"  {name} at n={n} ({L2_ROTATE} vectors in turn): "
+              f"kernel_ms={at[name]['ms']:.6f} (eager call "
+              f"{at[name]['call_ms']:.6f}) bound_ms={b_ms:.6f} ({b_by}) "
+              f"plain_ms={at[name]['plain_ms']:.6f} library_ms=none")
+    return {"pack_signs": {"tree_mlp": tree, "at_4Mi5": at["pack_signs"]},
+            "unpack_signs": {"frames": batched,
+                             "at_4Mi5": at["unpack_signs"]}}
 
 
 def tree_time_rows(dev) -> dict:
@@ -1130,9 +1427,7 @@ def tree_time_rows(dev) -> dict:
         reset_counts()
         new()
         per_call = counts()[name]
-        old_ms = [graph_ms(old)]
-        new_ms = [graph_ms(new), graph_ms(new)]
-        old_ms.append(graph_ms(old))
+        new_ms, old_ms = in_turns(new, old)
         eager_ms, path_ms, old_eager = call_ms(new), call_ms(path), call_ms(old)
         b_ms, b_by = bound_ms(nbytes, flops)
         print(f"  {name} tree ({len(la)} leaves, d={d}): kernel_ms="
@@ -1293,27 +1588,28 @@ def phase_times(dev, launched, errs, rounds):
          lambda: fc_mod.fused_cosine(x, y),
          lambda: fc_mod.fused_cosine_plain(x, y),
          lambda: torch.mm(X, X.T),
-         2 * n * 4 + 3 * 4, 6 * n, N * (S + 1)),
+         2 * n * 4 + 3 * 4, 6 * n),
         ("ef_update", "src/repro_torch/kernels/csrc/ef_update.cu",
          "src/repro/kernels/ef_update.py:31",
          lambda: ef_mod.ef_update(x, y, s),
          lambda: ef_mod.ef_update_plain(x, y, s),
          lambda: torch.addcmul(x, y, s, value=-1),
-         3 * n * 4 + 4, 2 * n, N),
+         3 * n * 4 + 4, 2 * n),
         # no single PyTorch call packs signs into words: no library time
         ("pack_signs", "src/repro_torch/kernels/csrc/bitpack.cu",
          "src/repro/kernels/bitpack.py:56",
          lambda: bp_mod.pack_signs(x),
          lambda: bp_mod.pack_signs_plain(x),
-         None, n * 4 + nw * 4, n, N),
+         None, n * 4 + nw * 4, n),
         ("unpack_signs", "src/repro_torch/kernels/csrc/bitpack.cu",
          "src/repro/kernels/bitpack.py:71",
          lambda: bp_mod.unpack_signs(words, n),
          lambda: bp_mod.unpack_signs_plain(words, n),
-         None, nw * 4 + n * 4, n, N),
+         None, nw * 4 + n * 4, n),
     ]
-    for (name, source, replaces, kern, plain, lib, nbytes, flops,
-         per_round) in specs:
+    for name, source, replaces, kern, plain, lib, nbytes, flops in specs:
+        # the path's measured launches over its ROUNDS rounds
+        per_round = launched[name] // ROUNDS
         kern_ms = graph_ms(kern)
         eager_ms = call_ms(kern)
         plain_ms = graph_ms(plain)
@@ -1332,9 +1628,11 @@ def phase_times(dev, launched, errs, rounds):
                      "call_ms": eager_ms,
                      "launches_per_round": per_round})
     trees = tree_time_rows(dev)
+    b3 = b3_time_extras(dev)
     for row in rows:
         if row["name"] in trees:
             row["tree_mlp"] = trees[row["name"]]
+        row.update(b3.get(row["name"], {}))
     rows.append(b4_time_row(dev, launched["ssd_chunk"], errs["ssd_chunk"]))
     rows += b56_time_rows(dev, launched, errs)
     for label, one_round in rounds:
@@ -1342,15 +1640,17 @@ def phase_times(dev, launched, errs, rounds):
     return rows
 
 
-def sign_codec_round(state: FLState):
-    """One signSGD codec-mode round at the main path's N, K, B."""
+def sign_codec_round(state: FLState, by_frame: bool = False):
+    """One signSGD codec-mode round at the main path's N, K, B; with
+    ``by_frame`` it decodes its frames one after another."""
     model = make_mlp(MNIST_SPEC)
     comp = matched_compressors("mlp", MNIST_SPEC, MLP_D)["signsgd"]
     strategy = make_strategy(comp, local_lr=0.01)
     run = RunConfig(fl=FLConfig(num_clients=N, local_steps=K, local_lr=0.01,
                                 local_batch=B, compressor=comp), wire="codec")
+    codec = strategy.wire_codec(state.params)
     return build_fl_round(model.loss, strategy, run,
-                          codec=strategy.wire_codec(state.params))
+                          codec=frame_by_frame(codec) if by_frame else codec)
 
 
 def main() -> int:
@@ -1379,7 +1679,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
         state, launched = phase_main_path(out_dir)
         float_round, batches, syn0 = phase_fused(state, dev)
-        sign_state, codec_launched = phase_codec_path(out_dir, state)
+        sign_state, codec_launched = phase_codec_path(out_dir, state,
+                                                      batches)
     phase_frames(dev)
     errs["ssd_chunk"] = phase_b4(dev)
     serve_launched = phase_serve()
@@ -1394,11 +1695,14 @@ def main() -> int:
                 "topk_mask": front_launched["topk_mask"]}
     errs = {**errs, "sign_quant": err_b5, "topk_mask": 0.0}
     sign_round = sign_codec_round(sign_state)
+    sign_round_by_frame = sign_codec_round(sign_state, by_frame=True)
     rows = phase_times(dev, launched, errs, [
         (f"main-path round (S={S}, N={N}, K={K}, B={B})",
          lambda: float_round(state, batches, 0, syn0=syn0)),
         (f"signSGD codec round (N={N}, K={K}, B={B})",
          lambda: sign_round(sign_state, batches, 0)),
+        (f"signSGD codec round decoding frame by frame (N={N}, K={K}, "
+         f"B={B})", lambda: sign_round_by_frame(sign_state, batches, 0)),
         (f"FedSynth round (N={N}, K={K}, B={B}, 10 opt x 5 unroll steps)",
          lambda: fs_round(fs_state, batches, 0, syn0=syn0)),
     ])

@@ -1,21 +1,30 @@
-"""Profile one main-path round of the PyTorch port on one CUDA card, and time
-kernels B1 and B2 on its shapes.
+"""Profile one main-path round and one signSGD codec round of the PyTorch
+port on one CUDA card, and time kernels B1, B2, B3a and B3b on their
+shapes.
 
     python3 scripts/torch_round_profile.py [--root DIR] [--label NAME]
                                            [--no-pdl]
 
 The round is the one ``chip_smoke.py`` drives: 3SFC with EF on the paper
 MLP (d = 199,210), N=10 clients, K=5 local steps, B=32, S=10 encoder steps,
-float mode, from params and batches made from a fixed seed. It prints one
+float mode, from params and batches made from a fixed seed; the signSGD
+round is the same clients in codec mode (``--wire codec``). It prints one
 JSON line with
 
 - B1 (``fused_cosine``) and B2 (``ef_update``) on one (d,) vector pair, and
   the front end's tree calls (``ops.tree_fused_stats``,
-  ``ops.tree_ef_update``) on the MLP's 6 leaves: device time per call, 200
-  calls in a CUDA graph, median of 21 replays;
-- after two warm rounds, the round's wall time (median of 3) and, from
-  ``torch.profiler`` over one more round, its device kernel time, its
-  device kernels and copies, and B1's and B2's kernels among them.
+  ``ops.tree_ef_update``) on the MLP's 6 leaves; B3a (``pack_signs``) and
+  B3b (``unpack_signs``) flat at d and at 4 Mi + 5, the calls at 4 Mi + 5
+  rotating over six vectors (so each reads device memory): device time
+  per call, 200 calls in a CUDA graph, median of 21 replays;
+- for each round, after two warm rounds, its wall time (median of 3) and,
+  from ``torch.profiler`` over one more round, its device kernel time,
+  its device kernels and copies, and the kernels of B1, B2 and B3 among
+  them.
+
+Only entry points that the port has had since B3 was first ported
+(``pack_signs``, ``unpack_signs``, ``build_fl_round`` with the signSGD
+codec) are called, so that an older checkout runs too.
 
 Both measurements are ``repro_torch.profiling``'s, as ``chip_smoke.py``
 takes them; the helper is loaded from this checkout whatever ``--root``
@@ -31,7 +40,8 @@ call on one card, one process each::
 
 ``--no-pdl`` builds that checkout's B1 and B2 sources with the launch
 attribute for programmatic dependent launch taken out (the one line
-``cfg.numAttrs = 1;`` of each ``launch()`` made ``0``; the
+``cfg.numAttrs = 1;`` of each source's launch, or of the ``csrc/*.cuh``
+header that holds it for them, made ``0``; the
 ``griddepcontrol.wait`` in the kernels then returns at once), into
 ``build/kernels_no_pdl/``, and measures with those: the trial that chose to
 launch with it.
@@ -43,6 +53,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import importlib.util
+import itertools
 import json
 import os
 import subprocess
@@ -52,11 +63,18 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.abspath(os.path.join(HERE, os.pardir))
 N, K, B, S = 10, 5, 32, 10
 MLP_D = 199_210
-# B1's and B2's kernels, by the names of the leaf-table kernels and of the
-# two-pass B1 and one-vector B2 before them
+# B3 at 4 Mi + 5: the calls rotate over 6 vectors, twice the 50 MB L2
+BIG_N, ROTATE = (1 << 22) + 5, 6
+# each kernel family by the names of its kernels now and before: the
+# leaf-table B1/B2 and the two-pass B1 and one-vector B2 before them; the
+# table and frames B3 and the one-vector B3 before them (matched as
+# substrings of the profiler's names, so "::" keeps pack_signs_kernel from
+# matching unpack_signs_kernel)
 KERNELS = {"fused_cosine": ("fused_cosine_table", "fused_cosine_partials",
                             "fused_cosine_finish"),
-           "ef_update": ("ef_update_table", "ef_update_kernel")}
+           "ef_update": ("ef_update_table", "ef_update_kernel"),
+           "pack_signs": ("pack_signs_table", "::pack_signs_kernel"),
+           "unpack_signs": ("unpack_signs_frames", "::unpack_signs_kernel")}
 PDL_LINE = "cfg.numAttrs = 1;"
 
 
@@ -75,12 +93,21 @@ def use_no_pdl_builds(_build) -> None:
     make ``_build.load`` return those libraries."""
     out = os.path.join(REPO, "build", "kernels_no_pdl")
     os.makedirs(out, exist_ok=True)
+    # the sources include their shared headers from beside them
+    headers = {h.name: h.read_text() for h in _build.CSRC.glob("*.cuh")}
+    for h, text in headers.items():
+        with open(os.path.join(out, h), "w") as f:
+            f.write(text.replace(PDL_LINE, "cfg.numAttrs = 0;"))
     procs = {}
     for name in ("fused_cosine", "ef_update"):
         src = (_build.CSRC / f"{name}.cu").read_text()
-        if src.count(PDL_LINE) != 1:
-            raise RuntimeError(f"{name}.cu has {src.count(PDL_LINE)} lines "
-                               f"{PDL_LINE!r}, not one: no PDL to take out")
+        found = src.count(PDL_LINE) + sum(
+            text.count(PDL_LINE) for h, text in headers.items()
+            if f'#include "{h}"' in src)
+        if found != 1:
+            raise RuntimeError(f"{name}.cu and its headers have {found} "
+                               f"lines {PDL_LINE!r}, not one: no PDL to "
+                               f"take out")
         cu = os.path.join(out, f"{name}.cu")
         with open(cu, "w") as f:
             f.write(src.replace(PDL_LINE, "cfg.numAttrs = 0;"))
@@ -114,6 +141,7 @@ def main(argv=None) -> int:
     from repro_torch.core.threesfc import SynData, init_syn
     from repro_torch.fl.round import build_fl_round, fl_init
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import bitpack as bp_mod
     from repro_torch.kernels import ef_update as ef_mod
     from repro_torch.kernels import fused_cosine as fc_mod
     from repro_torch.models.build import vision_syn_spec
@@ -128,7 +156,7 @@ def main(argv=None) -> int:
     torch.cuda.set_device(dev)
     if args.no_pdl:
         use_no_pdl_builds(_build)
-    _build.build_all(("fused_cosine", "ef_update"))
+    _build.build_all(("fused_cosine", "ef_update", "bitpack"))
 
     g = torch.Generator(device=dev)
     g.manual_seed(5)
@@ -139,11 +167,22 @@ def main(argv=None) -> int:
     a, b = model.init(g), model.init(g)
     if sum(t.numel() for t in flat.tree_leaves(a)) != MLP_D:
         raise AssertionError("not the paper MLP")
+    words = bp_mod.pack_signs(x)
+    xs = [torch.randn(BIG_N, generator=g, device=dev) for _ in range(ROTATE)]
+    ws = [bp_mod.pack_signs(v) for v in xs]
+    nx, nw = itertools.cycle(xs).__next__, itertools.cycle(ws).__next__
     kernel_ms = {
         "fused_cosine": prof.graph_ms(lambda: fc_mod.fused_cosine(x, y)),
         "ef_update": prof.graph_ms(lambda: ef_mod.ef_update(x, y, s)),
         "tree_fused_stats": prof.graph_ms(lambda: ops.tree_fused_stats(a, b)),
-        "tree_ef_update": prof.graph_ms(lambda: ops.tree_ef_update(a, b, s))}
+        "tree_ef_update": prof.graph_ms(lambda: ops.tree_ef_update(a, b, s)),
+        "pack_signs": prof.graph_ms(lambda: bp_mod.pack_signs(x)),
+        "unpack_signs": prof.graph_ms(
+            lambda: bp_mod.unpack_signs(words, MLP_D)),
+        "pack_signs_4Mi5": prof.graph_ms(lambda: bp_mod.pack_signs(nx())),
+        "unpack_signs_4Mi5": prof.graph_ms(
+            lambda: bp_mod.unpack_signs(nw(), BIG_N))}
+    del xs, ws
 
     comp = CompressorConfig(kind="threesfc", syn_steps=S, syn_lr=0.1)
     strategy = make_strategy(comp, loss_fn=model.syn_loss,
@@ -158,24 +197,36 @@ def main(argv=None) -> int:
     syns = [init_syn(g, strategy.syn_spec) for _ in range(N)]
     syn0 = SynData(*[torch.stack(ts) for ts in zip(*syns)])
 
-    def run():
-        return one_round(state, batches, 0, syn0=syn0)
+    sign_comp = CompressorConfig(kind="signsgd")
+    sign_strategy = make_strategy(sign_comp, local_lr=0.01)
+    sign_round = build_fl_round(model.loss, sign_strategy, RunConfig(
+        fl=FLConfig(num_clients=N, local_steps=K, local_lr=0.01,
+                    local_batch=B, compressor=sign_comp), wire="codec"),
+        codec=sign_strategy.wire_codec(state.params))
+    sign_state = fl_init(state.params, N, sign_strategy)
 
-    for _ in range(2):
-        run()
-    names = [k for keys in KERNELS.values() for k in keys]
-    r = prof.round_profile(run, names)
-    per_kernel = {}
-    for family, keys in KERNELS.items():
-        hits = [r["per_kernel_us"][k] for k in keys if k in r["per_kernel_us"]]
-        per_kernel[family] = {"launches": sum(c for _, c in hits),
-                              "device_us": sum(t for t, _ in hits)}
+    def profile(run):
+        for _ in range(2):
+            run()
+        names = [k for keys in KERNELS.values() for k in keys]
+        r = prof.round_profile(run, names)
+        per_kernel = {}
+        for family, keys in KERNELS.items():
+            hits = [r["per_kernel_us"][k] for k in keys
+                    if k in r["per_kernel_us"]]
+            per_kernel[family] = {"launches": sum(c for _, c in hits),
+                                  "device_us": sum(t for t, _ in hits)}
+        return {"round_wall_ms": r["round_wall_ms"], "walls_ms": r["walls_ms"],
+                "round_device_ms": r["round_device_ms"],
+                "device_launches": r["device_launches"],
+                "kernels": per_kernel}
+
+    main_round = profile(lambda: one_round(state, batches, 0, syn0=syn0))
     print(json.dumps({
         "label": args.label or root, "device": torch.cuda.get_device_name(0),
         "pdl": "off" if args.no_pdl else "as built", "kernel_ms": kernel_ms,
-        "round_wall_ms": r["round_wall_ms"], "walls_ms": r["walls_ms"],
-        "round_device_ms": r["round_device_ms"],
-        "device_launches": r["device_launches"], "kernels": per_kernel}))
+        **main_round,
+        "sign_round": profile(lambda: sign_round(sign_state, batches, 0))}))
     return 0
 
 

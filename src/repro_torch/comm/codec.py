@@ -10,10 +10,12 @@ reference's:
 * **topk** (DGC): per leaf, a f32 value stream (4k) plus the kept indices
   bit-packed at ``ceil(log2 n_leaf)`` bits each.
 * **signsgd**: one bit per coordinate — the whole tree's sign stream
-  packed 32→1 through kernel pair B3 (``kernels.bitpack``) — plus one f32
-  scale per leaf: ``ceil(d/8)`` payload bytes. 1-bit semantics: bit =
-  (x >= 0), so exact zeros decode to +scale (``client_view`` applies the
-  same convention on the client so EF and the server stay consistent).
+  packed 32→1 by kernel B3a straight from the leaves into the frame, and a
+  round's frames unpacked by one B3b launch (``kernels.bitpack``) — plus
+  one f32 scale per leaf: ``ceil(d/8)`` payload bytes. 1-bit semantics:
+  bit = (x >= 0), so exact zeros decode to +scale (``client_view`` applies
+  the same convention on the client so EF and the server stay
+  consistent).
 * **stc**: per leaf, 1 sign bit per kept entry + packed indices + one f32
   mu.
 * **threesfc**: the ``(D_syn, s)`` synthetic payload under a dtype policy
@@ -22,8 +24,11 @@ reference's:
 
 Decode round-trip contract: ``decode(encode(wire))`` equals the canonical
 payload bit-exactly, where canonical means "after the policy cast".
-Frames stay on the payload's device; words and index streams are integer
-ops, so a frame built on the card equals the one built on the CPU.
+``decode_batch`` (the reference's ``jax.vmap(codec.decode)``) gives a
+round's N canonical payloads stacked on a leading client axis, bitwise the
+frame-by-frame decodes stacked. Frames stay on the payload's device; words
+and index streams are integer ops, so a frame built on the card equals the
+one built on the CPU.
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ import torch
 
 from repro_torch.comm import frame
 from repro_torch.configs.base import CompressorConfig
+from repro_torch.core.flat import tree_stack
 from repro_torch.core.strategy import TreeCompressed, leaf_k, make_strategy
 from repro_torch.core.threesfc import SynData, SynSpec
 from repro_torch.core.tree import tree_flatten, tree_leaves, tree_map, \
@@ -110,15 +116,11 @@ def unpack_uint_stream(b: torch.Tensor, count: int,
     return torch.sum(bits << _arange(width, b.device), dim=1)
 
 
-def _words_to_bytes(words: torch.Tensor, nbytes: int) -> torch.Tensor:
-    return words.contiguous().view(torch.uint8)[:nbytes]
-
-
-def _bytes_to_words(b: torch.Tensor, nwords: int) -> torch.Tensor:
-    pad = nwords * 4 - b.numel()
-    if pad:
-        b = torch.cat([b, b.new_zeros(pad)])
-    return bytes_to_array(b, (nwords,), torch.int32)
+def _as_frame(buf) -> torch.Tensor:
+    """A frame as a uint8 tensor (numpy arrays are copied in)."""
+    if isinstance(buf, torch.Tensor):
+        return buf
+    return torch.from_numpy(np.array(buf, np.uint8))
 
 
 def _pm1(x: torch.Tensor) -> torch.Tensor:
@@ -139,7 +141,10 @@ class Codec:
     -> per-section uint8 tensors), ``_unpack`` (sections -> canonical
     payload) and, where the codec quantizes, ``canonical`` and
     ``client_view`` (the client-side dequantized reconstruction, so EF in
-    codec mode uses exactly what the server will apply).
+    codec mode uses exactly what the server will apply). A codec whose
+    layout allows it builds its frame in place and decodes a round's
+    frames as one batch by overriding ``encode``, ``decode``,
+    ``decode_batch`` and ``recon_batch`` (``SignCodec``).
     """
 
     kind: str = ""
@@ -191,11 +196,18 @@ class Codec:
 
     def decode(self, buf):
         """(nbytes,) uint8 tensor or numpy array -> canonical payload."""
-        if not isinstance(buf, torch.Tensor):
-            buf = torch.from_numpy(np.array(buf, np.uint8))
+        buf = _as_frame(buf)
         parts = [buf[o:o + n] for o, n in
                  zip(self.spec.section_offsets, self.spec.section_bytes)]
         return self._unpack(parts)
+
+    def decode_batch(self, bufs):
+        """A round's N frames (a sequence of (nbytes,) frames, or an (N,
+        nbytes) array) -> their canonical payloads stacked on a leading
+        client axis: the reference's ``jax.vmap(codec.decode)``. By default
+        frame by frame, then stacked; a codec may decode them as one
+        batch."""
+        return tree_stack([self.decode(b) for b in bufs])
 
     def _pack(self, wire):
         raise NotImplementedError
@@ -213,6 +225,15 @@ class Codec:
         """Server-side reconstruction from the decoded payload (the
         strategy's ``server_decode``)."""
         return self.strategy.server_decode(canon, params)
+
+    def recon_batch(self, bufs, params: PyTree) -> PyTree:
+        """A round's N frames (as ``decode_batch`` takes them) -> the N
+        server reconstructions stacked on a leading client axis: the
+        reference's ``jax.vmap(codec.recon_tree)`` over the decoded frames.
+        By default frame by frame (``decode``, then ``recon_tree``), then
+        stacked."""
+        return tree_stack([self.recon_tree(self.decode(b), params)
+                           for b in bufs])
 
     def check_round_wire(self) -> None:
         """Raise if this codec cannot host the round's codec mode (client EF
@@ -311,31 +332,60 @@ class SignCodec(Codec):
     """signSGD: one packed sign bit per coordinate + one f32 scale per leaf.
 
     The sign stream covers the concatenated tree (ceil(d/8) bytes, no
-    per-leaf padding), packed by kernel B3a and unpacked by B3b.
+    per-leaf padding). ``encode`` builds the frame in one buffer: the
+    header, the scales, then kernel B3a packs the leaves, read where they
+    lie, into the sign section. ``decode_batch`` unpacks a round's N sign
+    sections with one B3b launch, gathers the N scale vectors in one copy
+    and scales each leaf over (N, n_leaf); ``decode`` is its N = 1 case,
+    and ``recon_batch`` returns it as it is.
     """
 
     kind = "signsgd"
 
     def _section_bytes(self):
-        return (-(-self.d // 8), 4 * len(self.sizes))
+        return (bitpack.num_bytes(self.d), 4 * len(self.sizes))
 
-    def _pack(self, wire):
+    def encode(self, wire, round_idx: int = 0,
+               client_idx: int = 0) -> torch.Tensor:
         u, scales = wire
-        flatv = torch.cat([l.reshape(-1).to(torch.float32)
-                           for l in tree_leaves(u)])
-        words = bitpack.pack_signs(flatv)
-        return [_words_to_bytes(words, -(-self.d // 8)),
-                array_to_bytes(scales)]
+        leaves = [l.reshape(-1).to(torch.float32) for l in tree_leaves(u)]
+        scales = scales.reshape(-1).to(torch.float32).contiguous()
+        sizes = [l.numel() for l in leaves]
+        if sizes != self.sizes or scales.numel() != len(sizes):
+            raise ValueError(f"signsgd payload of leaves {sizes} and "
+                             f"{scales.numel()} scales; the layout wants "
+                             f"leaves {self.sizes} and {len(self.sizes)} "
+                             f"scales")
+        signs_at, scales_at = self.spec.section_offsets
+        buf = torch.empty(self.nbytes, dtype=torch.uint8,
+                          device=leaves[0].device)
+        frame.write_header(buf, self.spec, round_idx, client_idx)
+        buf[scales_at:].copy_(scales.view(torch.uint8))
+        bitpack.pack_signs_tree(leaves, buf[signs_at:scales_at])
+        return buf
 
-    def _unpack(self, sections):
-        words = _bytes_to_words(sections[0], bitpack.num_words(self.d))
-        pm1 = bitpack.unpack_signs(words, self.d)
-        scales = bytes_to_array(sections[1], (len(self.sizes),))
+    def decode(self, buf):
+        return tree_map(lambda l: l[0], self._decode_frames([_as_frame(buf)]))
+
+    def decode_batch(self, bufs):
+        return self._decode_frames([_as_frame(b) for b in bufs])
+
+    def _decode_frames(self, frames):
+        signs_at, scales_at = self.spec.section_offsets
+        pm1 = bitpack.unpack_signs_frames(frames, signs_at, self.d)
+        scales = torch.stack([f[scales_at:scales_at + 4 * len(self.sizes)]
+                              for f in frames]).view(torch.float32)
         leaves, off = [], 0
         for i, (shape, n) in enumerate(zip(self.shapes, self.sizes)):
-            leaves.append((scales[i] * pm1[off:off + n]).reshape(shape))
+            leaves.append((scales[:, i:i + 1] * pm1[:, off:off + n])
+                          .reshape(len(frames), *shape))
             off += n
         return self._leaf_tree(leaves)
+
+    def recon_batch(self, bufs, params):
+        # the decoded payload is the reconstruction
+        # (``SignSGDStrategy.server_decode`` returns it as it is)
+        return self.decode_batch(bufs)
 
     def canonical(self, wire):
         u, scales = wire

@@ -179,14 +179,25 @@ def _u32_as_i32(x: int) -> int:
 def encode_header(spec: FrameSpec, round_idx: int = 0, client_idx: int = 0,
                   device=None) -> torch.Tensor:
     """Full header + section table as a ``uint8`` tensor on ``device`` (the
-    CPU by default). Round and client are written by fills, so a frame
-    built on the card costs no host-to-device copy."""
-    device = torch.device(device or "cpu")
-    h = _static_on(spec, device)
-    ids = torch.full((2,), _u32_as_i32(int(round_idx)), dtype=torch.int32,
-                     device=device)
-    ids[1] = _u32_as_i32(int(client_idx))
-    return torch.cat([h[:8], ids.view(torch.uint8), h[16:]])
+    CPU by default), written by ``write_header``: a frame built on the card
+    costs no host-to-device copy."""
+    h = torch.empty(spec.header_bytes, dtype=torch.uint8,
+                    device=torch.device(device or "cpu"))
+    write_header(h, spec, round_idx, client_idx)
+    return h
+
+
+def write_header(out: torch.Tensor, spec: FrameSpec, round_idx: int = 0,
+                 client_idx: int = 0) -> None:
+    """Write the header and section table into the first
+    ``spec.header_bytes`` of the ``uint8`` buffer ``out`` (whose byte 8
+    lies on an 8-byte boundary), on its device: one copy of the static
+    part, one fill of round and client as one little-endian int64."""
+    # the int32 conversions check that both fit the header's uint32 fields
+    lo = _u32_as_i32(int(round_idx)) & 0xFFFFFFFF
+    hi = _u32_as_i32(int(client_idx))
+    out[:spec.header_bytes].copy_(_static_on(spec, out.device))
+    out[8:16].view(torch.int64).fill_(hi << 32 | lo)
 
 
 def parse_header(buf) -> Dict:

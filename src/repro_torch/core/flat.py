@@ -109,6 +109,12 @@ def tree_zeros_like(a: PyTree) -> PyTree:
     return tree_map(torch.zeros_like, a)
 
 
+def tree_stack(trees) -> PyTree:
+    """Trees of one structure -> one tree, each leaf stacked on a new
+    leading axis."""
+    return tree_map(lambda *xs: torch.stack(xs), trees[0], *trees[1:])
+
+
 def tree_size(a: PyTree) -> int:
     """Total number of scalars in the tree (an empty leaf counts 1, as in
     the reference)."""

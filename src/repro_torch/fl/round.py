@@ -10,8 +10,12 @@ three phases, each parameterized by the ``RunConfig`` and the
      or a framed ``uint8`` codec buffer (codec mode, ``run.wire ==
      'codec'``). The JAX package vmaps this over clients; here it is a
      loop.
-  2. **boundary** — in codec mode the server decodes each frame, one after
-     another; the messages are then stacked on a leading client axis.
+  2. **boundary** — the messages are stacked on a leading client axis; in
+     codec mode the server decodes the round's N frames as one batch: into
+     payloads when fused (``Codec.decode_batch``, the reference's
+     ``jax.vmap(codec.decode)``), else into reconstructions
+     (``Codec.recon_batch``); one B3b launch for signSGD, frame by frame
+     for the other codecs.
   3. **server phase** — the default path averages the per-client
      reconstructions (``fl.server``); a strategy declaring
      ``supports_fused_aggregate`` (3SFC) aggregates straight from the
@@ -102,10 +106,6 @@ def fl_init(params: PyTree, num_clients: int,
     return FLState(params, ef, 0)
 
 
-def _stack(trees) -> PyTree:
-    return flat.tree_map(lambda *xs: torch.stack(xs), trees[0], *trees[1:])
-
-
 def _check_codec(run: RunConfig, strategy: CompressionStrategy,
                  codec) -> None:
     """Validate the (wire, codec) pair for codec mode."""
@@ -186,20 +186,19 @@ def build_fl_round(
             losses.append(loss)
             cos.append(m.cosine)
             floats.append(m.payload_floats)
-        if wired:
-            # the server decodes frame by frame: one canonical payload each
-            msgs = [codec.decode(buf) for buf in msgs]
-            if not fused:
-                msgs = [codec.recon_tree(c, params) for c in msgs]
+        # (N, ...) messages: payloads (fused) or reconstructions
+        if not wired:
+            batch = flat.tree_stack(msgs)
+        elif fused:
+            batch = codec.decode_batch(msgs)
+        else:
+            batch = codec.recon_batch(msgs, params)
         if fused:
-            syns = SynData(*[torch.stack(ts)
-                             for ts in zip(*[s for s, _ in msgs])])
-            ss = torch.stack([s for _, s in msgs])
-            agg = strategy.server_aggregate(params, (syns, ss))
+            agg = strategy.server_aggregate(params, batch)
             pf = torch.tensor(strategy.payload_floats(params),
                               dtype=torch.float32, device=device)
         else:
-            agg = aggregate(_stack(msgs), weights)
+            agg = aggregate(batch, weights)
             pf = torch.mean(torch.stack(floats))
         new_params = server_update(params, agg, cfg.server_lr)
         rm = RoundMetrics(

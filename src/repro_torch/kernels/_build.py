@@ -6,8 +6,10 @@ Every ``csrc/<name>.cu`` compiles into its own shared library with a plain
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
         -Xcompiler -fPIC -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
 
-The output name carries a hash of the source and the flags, so an unchanged
-tree never rebuilds and an edited one never loads a stale library. The
+The output name carries a hash of the source, the ``csrc/*.cuh`` headers it
+includes (``launch.cuh``: the launch helpers of the table kernels) and the
+flags, so an unchanged tree never rebuilds and an edited one never loads a
+stale library. The
 build directory (``build/kernels/`` at the repository root) is git-ignored.
 ``build_all()`` starts one ``nvcc`` per source at once and waits for all of
 them; ``load(name)`` builds one source at first use. Nothing here runs at
@@ -49,10 +51,17 @@ def find_nvcc() -> str:
         "port's CUDA kernels need the CUDA toolkit to build")
 
 
+def _headers(src: bytes) -> list:
+    """The ``csrc/*.cuh`` headers that a source includes, by name."""
+    return [h for h in sorted(CSRC.glob("*.cuh"))
+            if f'#include "{h.name}"'.encode() in src]
+
+
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     flags = " ".join(NVCC_FLAGS).encode()
-    digest = hashlib.sha256(src + b"\0" + flags).hexdigest()[:16]
+    text = b"\0".join([src, *(h.read_bytes() for h in _headers(src)), flags])
+    digest = hashlib.sha256(text).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -2,54 +2,68 @@
 
 Replaces the TPU kernels ``pack_signs_2d`` and ``unpack_signs_2d`` of the
 JAX package (``repro/kernels/bitpack.py``). The CUDA source is
-``csrc/bitpack.cu``: ``pack_signs`` builds each 32-bit word with one warp
-ballot, ``unpack_signs`` writes one ±1 per thread. Both are bound by bytes
-(4n in and n/8 out, or the reverse).
+``csrc/bitpack.cu``: B3a packs a tree's leaves, read where they lie,
+straight into a byte stream (a frame's sign section) in one launch per
+table of leaves (``kernels/pack_table.py``); B3b expands the sign sections
+of a batch of frames, read in place, into an ``(N, n)`` ±1 tensor in one
+launch per ``MAX_FRAMES`` frames. Both are bound by bytes (4n in and n/8
+out, or the reverse).
 
 Wire contract, shared with ``comm.codec``: flat element ``i`` lands in word
-``i // 32``, bit ``i % 32`` (LSB first); the bit is ``x >= 0`` after a
+``i // 32``, bit ``i % 32`` (LSB first), which is byte ``i // 8``, bit
+``i % 8`` of the little-endian stream; the bit is ``x >= 0`` after a
 subnormal is flushed to a zero of its sign (``kernels.ftz``, as the
 reference flushes it), so ``-0.0`` and ``-1e-40`` pack to 1, NaN to 0, and
-an exact zero unpacks to +1. Bits past ``n`` in
-the last word are 1 (the reference pads the tail with +1.0). Words are kept
-as ``int32`` tensors holding the 32 bits; ``.view(torch.uint8)`` gives
-their little-endian bytes.
+an exact zero unpacks to +1. Bits past ``n`` in the last word are 1 (the
+reference pads the tail with +1.0). A flat call's words are kept as
+``int32`` tensors holding the 32 bits; ``.view(torch.uint8)`` gives their
+little-endian bytes.
 
-``pack_signs``/``unpack_signs`` run the plain PyTorch version for tensors
-on the CPU and launch the kernel for tensors on a CUDA device; there is no
-fallback from one to the other. ``LAUNCHES`` counts kernel launches, one
-dict entry per kernel.
+The entries: ``pack_signs(x)`` and ``unpack_signs(words, n)`` (one flat
+vector), ``pack_signs_tree(leaves, out)`` and ``unpack_signs_frames(frames,
+offset, n)``. Each runs the plain PyTorch version for tensors on the CPU
+and launches the kernel for tensors on a CUDA device; there is no fallback
+from one to the other. ``LAUNCHES`` counts kernel launches, one dict entry
+per kernel, whichever entry launched it.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import List, Sequence, Union
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, pack_table
 from repro_torch.kernels.ftz import flush_subnormal
 
 # kernel launches since import (or since a caller reset them to 0)
 LAUNCHES = {"pack_signs": 0, "unpack_signs": 0}
 
-# grid cap for the grid-stride loops (132 SMs x 8 resident blocks)
-MAX_BLOCKS = 1024
+# frames per B3b launch: a table of section pointers, 2 KB of parameters
+MAX_FRAMES = 256
 
 _LIB = None
-_THREADS = 0
 
 
 def _lib() -> ctypes.CDLL:
-    global _LIB, _THREADS
+    global _LIB
     if _LIB is None:
         lib = _build.load("bitpack")
-        lib.bitpack_threads.argtypes = []
-        lib.bitpack_threads.restype = ctypes.c_int
-        for fn in (lib.pack_signs_launch, lib.unpack_signs_launch):
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                           ctypes.c_int64, ctypes.c_void_p]
+        consts = (lib.bitpack_max_segments, lib.bitpack_max_frames)
+        for fn in consts:
+            fn.argtypes = []
             fn.restype = ctypes.c_int
-        _THREADS = lib.bitpack_threads()
+        got = tuple(fn() for fn in consts)
+        if got != (pack_table.TABLE, MAX_FRAMES):
+            raise RuntimeError(f"bitpack.cu has (table, frames) {got}, the "
+                               f"wrapper {(pack_table.TABLE, MAX_FRAMES)}")
+        i64, ptr = ctypes.c_int64, ctypes.c_void_p
+        lib.pack_signs_launch.argtypes = [ptr, ctypes.c_int, ptr, i64, i64,
+                                          i64, i64, ctypes.c_int, ptr]
+        lib.unpack_signs_launch.argtypes = [ptr, ctypes.c_int, ptr, i64, i64,
+                                            i64, ctypes.c_int, ptr]
+        for fn in (lib.pack_signs_launch, lib.unpack_signs_launch):
+            fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -58,13 +72,23 @@ def num_words(n: int) -> int:
     return -(-n // 32)
 
 
-def _shifts(device) -> torch.Tensor:
-    return torch.arange(32, dtype=torch.int64, device=device)
+def num_bytes(n: int) -> int:
+    """Bytes of a sign stream of ``n`` elements, with no padding word."""
+    return -(-n // 8)
+
+
+def _shifts(width: int, device) -> torch.Tensor:
+    return torch.arange(width, dtype=torch.int64, device=device)
 
 
 def _to_int32_bits(v: torch.Tensor) -> torch.Tensor:
     """int64 values in [0, 2**32) -> int32 with the same low 32 bits."""
     return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
 
 
 def pack_signs_plain(x: torch.Tensor) -> torch.Tensor:
@@ -74,15 +98,38 @@ def pack_signs_plain(x: torch.Tensor) -> torch.Tensor:
     pad = num_words(n) * 32 - n
     xp = torch.cat([x, x.new_ones(pad)]) if pad else x
     bits = (flush_subnormal(xp) >= 0).to(torch.int64).reshape(-1, 32)
-    words = torch.sum(bits << _shifts(x.device), dim=1)
+    words = torch.sum(bits << _shifts(32, x.device), dim=1)
     return _to_int32_bits(words)
 
 
 def unpack_signs_plain(words: torch.Tensor, n: int) -> torch.Tensor:
     """The plain PyTorch version: bit ``i % 32`` of word ``i // 32`` -> ±1."""
     w = words.to(torch.int64) & 0xFFFFFFFF
-    bits = (w[:, None] >> _shifts(words.device)) & 1
+    bits = (w[:, None] >> _shifts(32, words.device)) & 1
     return (bits.to(torch.float32) * 2.0 - 1.0).reshape(-1)[:n]
+
+
+def pack_signs_tree_plain(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The plain version of the tree pack: the flat plain pack of the
+    leaves' concatenation, as its first ``ceil(d/8)`` bytes."""
+    flat = torch.cat([l.reshape(-1) for l in leaves])
+    return pack_signs_plain(flat).view(torch.uint8)[:num_bytes(flat.numel())]
+
+
+def unpack_signs_frames_plain(frames: Sequence[torch.Tensor], offset: int,
+                              n: int) -> torch.Tensor:
+    """The plain version of the frames' unpack: bit ``i % 8`` of byte
+    ``offset + i // 8`` of each frame -> ±1, one row per frame."""
+    nb = num_bytes(n)
+    sec = torch.stack([f[offset:offset + nb] for f in frames])
+    bits = (sec.to(torch.int64)[..., None] >> _shifts(8, sec.device)) & 1
+    return (bits.to(torch.float32) * 2.0 - 1.0).reshape(len(frames),
+                                                        -1)[:, :n]
+
+
+# ---------------------------------------------------------------------------
+# entries
+# ---------------------------------------------------------------------------
 
 
 def _check_device(name: str, t: torch.Tensor) -> None:
@@ -92,17 +139,55 @@ def _check_device(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name} runs on cpu or cuda, not {t.device}")
 
 
-def _launch(fn, src: torch.Tensor, dst: torch.Tensor, n: int,
-            units: int) -> None:
-    # one element or one word's lane per thread, at most MAX_BLOCKS (a
-    # grid-stride loop covers the rest)
-    blocks = max(1, min(-(-units // _THREADS), MAX_BLOCKS))
-    # the launcher uses the current device; this restores the caller's after
-    with torch.cuda.device(src.device):
-        rc = fn(src.data_ptr(), dst.data_ptr(), n, blocks,
-                torch.cuda.current_stream(src.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"bitpack launch failed: cudaError {rc}")
+def _stream(device: torch.device) -> int:
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def _pack(leaves: List[torch.Tensor], out: torch.Tensor, nbytes: int) -> None:
+    """B3a over ``leaves`` into the ``nbytes``-byte stream at ``out``: one
+    launch per table of ``pack_table.pack_plan``."""
+    sizes = [l.numel() for l in leaves]
+    plan = pack_table.pack_plan(sizes)
+    if not plan:                         # every leaf is empty
+        return
+    lib = _lib()
+    device = out.device
+    end = sum(sizes)
+    for step in plan:
+        desc = (ctypes.c_int64 * (3 * len(step.segments)))()
+        for k, (leaf, first, start, n) in enumerate(step.segments):
+            desc[3 * k:3 * k + 3] = (leaves[leaf].data_ptr() + 4 * first,
+                                     start, n)
+        last = 32 * (step.first_word + step.words)
+        rc = lib.pack_signs_launch(desc, len(step.segments), out.data_ptr(),
+                                   nbytes, step.first_word, step.words,
+                                   min(end, last), device.index,
+                                   _stream(device))
+        if rc != 0:
+            raise RuntimeError(f"pack_signs launch failed: cudaError {rc}")
+        LAUNCHES["pack_signs"] += 1
+
+
+def _unpack(sections: List[int], nbytes: int, n: int,
+            device: torch.device) -> torch.Tensor:
+    """B3b over the sign sections at ``sections`` (device addresses of
+    ``nbytes`` bytes each) -> (N, n) f32, one launch per ``MAX_FRAMES``
+    rows. The rows lie ``stride`` (n rounded up to 4) elements apart, so
+    each starts on a 16-byte boundary; the caller gets the (N, n) view."""
+    stride = -(-n // 4) * 4
+    buf = torch.empty((len(sections), stride), dtype=torch.float32,
+                      device=device)
+    lib = _lib()
+    for r0 in range(0, len(sections), MAX_FRAMES):
+        rows = sections[r0:r0 + MAX_FRAMES]
+        secs = (ctypes.c_int64 * len(rows))(*rows)
+        rc = lib.unpack_signs_launch(secs, len(rows), buf[r0].data_ptr(),
+                                     stride, n, nbytes, device.index,
+                                     _stream(device))
+        if rc != 0:
+            raise RuntimeError(f"unpack_signs launch failed: cudaError {rc}")
+        LAUNCHES["unpack_signs"] += 1
+    return buf[:, :n]
 
 
 def pack_signs(x: torch.Tensor) -> torch.Tensor:
@@ -113,14 +198,43 @@ def pack_signs(x: torch.Tensor) -> torch.Tensor:
     _check_device("pack_signs", x)
     if x.device.type == "cpu":
         return pack_signs_plain(x)
-    n = x.numel()
-    words = torch.empty(num_words(n), dtype=torch.int32, device=x.device)
-    if n == 0:
-        return words
-    lib = _lib()
-    _launch(lib.pack_signs_launch, x, words, n, 32 * words.numel())
-    LAUNCHES["pack_signs"] += 1
+    words = torch.empty(num_words(x.numel()), dtype=torch.int32,
+                        device=x.device)
+    _pack([x], words.view(torch.uint8), 4 * words.numel())
     return words
+
+
+def pack_signs_tree(leaves: Sequence[torch.Tensor],
+                    out: torch.Tensor) -> torch.Tensor:
+    """Pack the signs of contiguous f32 ``leaves`` (any shapes, taken in
+    order as one stream of d elements) into ``out``, a contiguous (ceil(d/8),)
+    uint8 tensor on their device (a frame's sign section, at any byte),
+    reading each leaf where it lies; returns ``out``. Bits past d in the
+    last byte are 1."""
+    if not leaves:
+        raise ValueError("pack_signs_tree takes at least one leaf")
+    if out.dtype != torch.uint8 or out.dim() != 1:
+        raise TypeError(f"pack_signs_tree writes a (bytes,) uint8 stream, "
+                        f"got {out.dtype}{list(out.shape)}")
+    _check_device("pack_signs_tree", out)
+    for l in leaves:
+        if l.dtype != torch.float32:
+            raise TypeError(f"pack_signs_tree takes f32 leaves, got "
+                            f"{l.dtype}")
+        if l.device != out.device:
+            raise ValueError(f"pack_signs_tree: a leaf on {l.device}, the "
+                             f"stream on {out.device}")
+        _check_device("pack_signs_tree", l)
+    d = sum(l.numel() for l in leaves)
+    if out.numel() != num_bytes(d):
+        raise ValueError(f"pack_signs_tree: {out.numel()} bytes cannot hold "
+                         f"exactly d={d} signs (need {num_bytes(d)})")
+    if out.device.type == "cpu":
+        if d:
+            out.copy_(pack_signs_tree_plain(leaves))
+        return out
+    _pack(list(leaves), out, out.numel())
+    return out
 
 
 def unpack_signs(words: torch.Tensor, n: int) -> torch.Tensor:
@@ -134,10 +248,40 @@ def unpack_signs(words: torch.Tensor, n: int) -> torch.Tensor:
     _check_device("unpack_signs", words)
     if words.device.type == "cpu":
         return unpack_signs_plain(words, n)
-    out = torch.empty(n, dtype=torch.float32, device=words.device)
     if n == 0:
-        return out
-    lib = _lib()
-    _launch(lib.unpack_signs_launch, words, out, n, n)
-    LAUNCHES["unpack_signs"] += 1
-    return out
+        return torch.empty(0, dtype=torch.float32, device=words.device)
+    return _unpack([words.data_ptr()], 4 * words.numel(), n, words.device)[0]
+
+
+def unpack_signs_frames(frames: Union[torch.Tensor, Sequence[torch.Tensor]],
+                        offset: int, n: int) -> torch.Tensor:
+    """The ±1 signs of N frames -> (N, n) f32: row r from the ``ceil(n/8)``
+    bytes at byte ``offset`` of frame r (the sign section), read in place.
+    ``frames`` is a sequence of contiguous 1-D uint8 tensors on one device,
+    or a 2-D uint8 tensor whose rows are the frames; a frame may start at
+    any byte. Nothing past a section is read."""
+    rows = list(frames)
+    if not rows:
+        raise ValueError("unpack_signs_frames takes at least one frame")
+    if offset < 0 or n < 0:
+        raise ValueError(f"unpack_signs_frames: offset {offset} and n {n} "
+                         f"must be >= 0")
+    need = offset + num_bytes(n)
+    for f in rows:
+        if f.dtype != torch.uint8 or f.dim() != 1:
+            raise TypeError(f"unpack_signs_frames takes (bytes,) uint8 "
+                            f"frames, got {f.dtype}{list(f.shape)}")
+        if f.device != rows[0].device:
+            raise ValueError(f"frames on {rows[0].device} and {f.device}")
+        if f.numel() < need:
+            raise ValueError(f"a frame of {f.numel()} bytes has no "
+                             f"{num_bytes(n)}-byte section at byte {offset}")
+        _check_device("unpack_signs_frames", f)
+    device = rows[0].device
+    if device.type == "cpu":
+        return unpack_signs_frames_plain(rows, offset, n)
+    if n == 0:
+        return torch.empty((len(rows), 0), dtype=torch.float32,
+                           device=device)
+    return _unpack([f.data_ptr() + offset for f in rows], num_bytes(n), n,
+                   device)

@@ -26,6 +26,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -48,14 +50,6 @@ struct Table {
   int count;
 };
 static_assert(sizeof(Table) < 4096, "B2 table over 4 KB");
-
-// Every launch sets programmatic stream serialization (Hopper's programmatic
-// dependent launch): the grid may start while the previous kernel on its
-// stream drains, and waits here, after the table lookup and before its first
-// global access, until that kernel's memory is visible.
-__device__ __forceinline__ void grid_dependency_wait() {
-  asm volatile("griddepcontrol.wait;" ::: "memory");
-}
 
 // The segment that owns block b: the last one whose first_block <= b.
 __device__ __forceinline__ const Seg& find_seg(const Table& t, int b) {
@@ -81,7 +75,7 @@ __global__ void __launch_bounds__(kThreads)
 ef_update_table(const __grid_constant__ Table t,
                 const float* __restrict__ s_ptr) {
   const Seg& sg = find_seg(t, blockIdx.x);
-  grid_dependency_wait();
+  port::grid_dependency_wait();
   const float* __restrict__ u = sg.u;
   const float* __restrict__ d = sg.d;
   float* __restrict__ out = sg.out;
@@ -147,17 +141,8 @@ cudaError_t launch(const int64_t* desc, int count, int blocks, const float* s,
     t.seg[k].blocks = (int)e[5];
   }
   t.count = count;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)blocks);
-  cfg.blockDim = dim3(kThreads);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr.val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, ef_update_table, t, s);
-  return err != cudaSuccess ? err : cudaGetLastError();
+  return port::launch_pdl(ef_update_table, (unsigned)blocks, kThreads, stream,
+                          t, s);
 }
 
 }  // namespace
@@ -175,15 +160,10 @@ int ef_update_elems_per_block() { return kElemsPerBlock; }
 int ef_update_launch(const int64_t* desc, int count, int blocks,
                      const float* s, int device, void* stream) {
   if (count < 1 || count > kMaxSegs || blocks < 1) return cudaErrorInvalidValue;
-  int prev = device;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err != cudaSuccess) return (int)err;
-  if (prev != device && (err = cudaSetDevice(device)) != cudaSuccess)
-    return (int)err;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  err = launch(desc, count, blocks, s, st);
-  if (prev != device) cudaSetDevice(prev);
-  return (int)err;
+  return port::on_device(device, [&] {
+    return launch(desc, count, blocks, s,
+                  reinterpret_cast<cudaStream_t>(stream));
+  });
 }
 
 }  // extern "C"

@@ -38,6 +38,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -102,14 +104,6 @@ __device__ __forceinline__ void acc4(const float4 a, const float4 b, float& xy,
   yy = fmaf(b.z, b.z, yy); yy = fmaf(b.w, b.w, yy);
 }
 
-// Every launch sets programmatic stream serialization (Hopper's programmatic
-// dependent launch): the grid may start while the previous kernel on its
-// stream drains, and waits here, after the table lookup and before its first
-// global access, until that kernel's memory is visible.
-__device__ __forceinline__ void grid_dependency_wait() {
-  asm volatile("griddepcontrol.wait;" ::: "memory");
-}
-
 // atomicInc at gpu scope with acquire-release order: it publishes this
 // thread's partials row to the block that draws the last ticket, and that
 // block's thread 0 sees every row (its __syncthreads() passes that on to the
@@ -137,7 +131,7 @@ fused_cosine_table(const __grid_constant__ Table t,
                    float* __restrict__ partials, unsigned int* ticket,
                    float* __restrict__ out, int chain) {
   const Seg& sg = find_seg(t, blockIdx.x);
-  grid_dependency_wait();
+  port::grid_dependency_wait();
   const float* __restrict__ x = sg.x;
   const float* __restrict__ y = sg.y;
   const int64_t n = sg.n;
@@ -229,18 +223,8 @@ cudaError_t launch(const int64_t* desc, int count, int blocks, float* partials,
     t.seg[k].blocks = (int)d[4];
   }
   t.count = count;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)blocks);
-  cfg.blockDim = dim3(kThreads);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr.val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, fused_cosine_table, t,
-                                       partials, ticket, out, chain);
-  return err != cudaSuccess ? err : cudaGetLastError();
+  return port::launch_pdl(fused_cosine_table, (unsigned)blocks, kThreads,
+                          stream, t, partials, ticket, out, chain);
 }
 
 }  // namespace
@@ -261,15 +245,10 @@ int fused_cosine_launch(const int64_t* desc, int count, int blocks,
                         float* partials, unsigned int* ticket, float* out,
                         int chain, int device, void* stream) {
   if (count < 1 || count > kMaxSegs || blocks < 1) return cudaErrorInvalidValue;
-  int prev = device;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err != cudaSuccess) return (int)err;
-  if (prev != device && (err = cudaSetDevice(device)) != cudaSuccess)
-    return (int)err;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  err = launch(desc, count, blocks, partials, ticket, out, chain, s);
-  if (prev != device) cudaSetDevice(prev);
-  return (int)err;
+  return port::on_device(device, [&] {
+    return launch(desc, count, blocks, partials, ticket, out, chain,
+                  reinterpret_cast<cudaStream_t>(stream));
+  });
 }
 
 }  // extern "C"

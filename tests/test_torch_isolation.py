@@ -132,3 +132,19 @@ def test_library_names_follow_the_sources():
         sorted(f"{n}.cu" for n in _build.KERNELS)
     assert all(p.parent == _build.BUILD_DIR for p in paths.values())
     assert _build._lib_path("fused_cosine") == paths["fused_cosine"]
+
+
+def test_library_names_follow_the_headers_they_include(tmp_path,
+                                                       monkeypatch):
+    for p in _build.CSRC.iterdir():
+        (tmp_path / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = {n: _build._lib_path(n) for n in _build.KERNELS}
+    including = {n for n in _build.KERNELS
+                 if '#include "launch.cuh"' in (tmp_path / f"{n}.cu")
+                 .read_text()}
+    assert including == {"bitpack", "ef_update", "fused_cosine"}
+    header = tmp_path / "launch.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    changed = {n for n in _build.KERNELS if _build._lib_path(n) != before[n]}
+    assert changed == including
