@@ -24,7 +24,10 @@ Phases, in order; any failure exits non-zero:
              inside a leaf, an unaligned leaf), into a section at an odd
              byte; B3b's frames entry on 1, 3 and 10 signSGD frames, as a
              list and stacked, and on unaligned frame views; one device
-             kernel per tree pack and per batched unpack.
+             kernel per tree pack and per batched unpack. One call each of
+             B5 and B6 at the MLP's d is one device kernel (here, before
+             phase 9: after it torch.profiler drops the device records of
+             short sessions in this process).
 4. main path — ``repro_torch.launch.train.main`` at the trainer's defaults
              (MLP on MNIST shapes, 3SFC+EF, N=10, K=5, B=32, S=10) for 3
              rounds, with every launch counter set to 0 just before and read
@@ -73,11 +76,18 @@ Phases, in order; any failure exits non-zero:
              cache leaf must agree.
 11. B5, B6 — sign_quant and topk_mask against their plain versions on the
              card at lengths 0, 1, 31, 1023, 1024, 1025, 199,210 and 4 Mi + 5
-             (±subnormals, ±0 and values at τ planted), on every leaf of the
-             MLP and on an unaligned view, at τ = 0, 1e-39, 1e-38, FLT_MIN and
-             the sampled thresholds of k = 1% and 10%: signs, masks and
-             counts bitwise, the scale within rtol 1e-5 and bitwise
-             repeatable; ``topk_threshold`` on the card equal to the CPU's.
+             and at ±1 of a thread's step (16), of a block's tile (4,096)
+             and of one wave's elements (±subnormals, ±0 and values at τ
+             planted), on every leaf of the MLP and on views 1, 2 and 3
+             floats off a 16-byte boundary, at τ = 0, 1e-39, 1e-38, FLT_MIN
+             and the sampled thresholds of k = 1% and 10%: signs, masks and
+             counts bitwise, the scale within rtol 1e-5, each bitwise
+             repeatable over 3 calls; ``topk_threshold`` on the card equal
+             to the CPU's. Two calls of each captured in one CUDA graph and
+             replayed 3 times (outputs poisoned before each replay) give
+             bitwise the eager results, which holds each stream's ticket to
+             0 between launches; a first call on a stream inside a capture
+             raises.
 12. compressors — the compressor library at the MLP's full width on a
              client update from the trainer's state: ``make_compressor`` for
              identity, topk, randk, signsgd and stc and the flat
@@ -135,7 +145,8 @@ from repro_torch.kernels.ftz import FLT_MIN, flush_subnormal  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models.build import build_model, vision_syn_spec  # noqa: E402
 from repro_torch.models.cnn import MNIST_SPEC, make_mlp  # noqa: E402
-from repro_torch.profiling import graph_ms, round_profile  # noqa: E402
+from repro_torch.profiling import (call_ms, graph_ms,  # noqa: E402
+                                  round_profile)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 non-tensor FLOP/s
 # and dense TF32 tensor-core FLOP/s
@@ -320,6 +331,14 @@ def phase_kernels(dev) -> dict:
           f"unaligned view, with 0.0, -0.0, NaN, +inf, -inf, ±subnormals and "
           f"-FLT_MIN planted")
     phase_b3_entries(dev, g)
+    # B5 and B6 here too: after phase 9 torch.profiler drops the device
+    # records of short sessions in this process (of B1's too)
+    x = torch.randn(MLP_D, generator=g, device=dev)
+    tau = ops.topk_threshold(x, MLP_D // 100)
+    check_one_kernel("sign_quant at the MLP's d", "sign_quant_kernel",
+                     lambda: sq_mod.sign_quant(x))
+    check_one_kernel("topk_mask at the MLP's d", "topk_mask_kernel",
+                     lambda: tm_mod.topk_mask(x, tau))
     return {"fused_cosine": err_b1, "ef_update": err_b2,
             "pack_signs": 0.0, "unpack_signs": 0.0}
 
@@ -375,20 +394,26 @@ def check_tree(label: str, a: dict, b: dict, s: torch.Tensor) -> tuple:
     return err_b1, err_b2
 
 
-def check_one_kernel(label: str, kernel: str, fn) -> None:
+def check_one_kernel(label: str, kernel: str, fn, sessions: int = 3) -> None:
     """One ``fn()`` under torch.profiler after a warm-up call (which makes
     the stream's scratch): exactly one device kernel, ``kernel``, and no
-    copy, cat, fill or memset."""
+    copy, cat, fill or memset. torch.profiler sometimes records no device
+    work at all in a short session (on the card, in a process that has
+    captured CUDA graphs or served the full model, for every kernel): such
+    a session is taken again, up to ``sessions`` in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            break
     if len(names) != 1 or kernel not in names[0]:
         raise AssertionError(f"{label}: device work {names}, expected one "
                              f"{kernel} kernel")
@@ -1011,15 +1036,25 @@ def phase_routes(dev) -> None:
 # ---------------------------------------------------------------------------
 
 
+def repeated(fn, label: str, calls: int = 3):
+    """``calls`` calls of ``fn``; each must give bitwise the first's
+    tensors. Returns the first call's."""
+    first = fn()
+    for _ in range(calls - 1):
+        again = fn()
+        torch.cuda.synchronize()
+        if not all(same_bits(a, b) for a, b in zip(first, again)):
+            raise AssertionError(f"not bitwise repeatable at {label}")
+    return first
+
+
 def check_b5(x: torch.Tensor, label: str) -> float:
-    """B5 twice (signs and scale bitwise equal) against its plain version:
-    signs bitwise, the scale within B5_RTOL; returns |scale − plain|."""
-    signs, scale = sq_mod.sign_quant(x)
-    signs2, scale2 = sq_mod.sign_quant(x)
+    """B5 three times (signs and scale bitwise equal) against its plain
+    version: signs bitwise, the scale within B5_RTOL; returns |scale −
+    plain|."""
+    signs, scale = repeated(lambda: sq_mod.sign_quant(x), f"B5, {label}")
     want_signs, want_scale = sq_mod.sign_quant_plain(x)
     torch.cuda.synchronize()
-    if not (same_bits(signs, signs2) and same_bits(scale, scale2)):
-        raise AssertionError(f"B5 not bitwise repeatable at {label}")
     if not same_bits(signs, want_signs):
         bad = int(torch.nonzero(signs != want_signs)[0])
         raise AssertionError(f"B5 signs disagree at {label}, element {bad}: "
@@ -1036,14 +1071,11 @@ def check_b5(x: torch.Tensor, label: str) -> float:
 
 
 def check_b6(x: torch.Tensor, tau: torch.Tensor, label: str) -> int:
-    """B6 twice (bitwise equal) against its plain version: the masked
+    """B6 three times (bitwise equal) against its plain version: the masked
     vector and the count bitwise; returns the count."""
-    out, cnt = tm_mod.topk_mask(x, tau)
-    out2, cnt2 = tm_mod.topk_mask(x, tau)
+    out, cnt = repeated(lambda: tm_mod.topk_mask(x, tau), f"B6, {label}")
     want, want_cnt = tm_mod.topk_mask_plain(x, tau)
     torch.cuda.synchronize()
-    if not (same_bits(out, out2) and same_bits(cnt, cnt2)):
-        raise AssertionError(f"B6 not bitwise repeatable at {label}")
     if not same_bits(out, want):
         bad = int(torch.nonzero(out.view(torch.int32)
                                 != want.view(torch.int32))[0])
@@ -1053,6 +1085,56 @@ def check_b6(x: torch.Tensor, tau: torch.Tensor, label: str) -> int:
         raise AssertionError(f"B6 count disagrees at {label}: {float(cnt)} "
                              f"vs {float(want_cnt)}")
     return int(cnt)
+
+
+def check_graph_replays(fn, label: str, replays: int = 3) -> None:
+    """Two calls of ``fn`` captured in one CUDA graph, replayed ``replays``
+    times with the outputs poisoned before each replay: every replay must
+    write bitwise the eager call's results. A ticket left off 0 would leave
+    the scale or count unwritten (still NaN) or written by the wrong
+    block."""
+    want = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                    # the stream's scratch, outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        outs = [fn(), fn()]
+    for _ in range(replays):
+        for out in outs:
+            for t in out:
+                t.reshape(-1).view(torch.uint8).fill_(0xFF)  # NaN, -1
+        graph.replay()
+        torch.cuda.synchronize()
+        for out in outs:
+            if not all(same_bits(a, b) for a, b in zip(out, want)):
+                raise AssertionError(f"{label}: a CUDA graph replay differs "
+                                     f"from the eager call")
+
+
+def check_first_call_in_capture_raises(fn, scratch, label: str) -> None:
+    """The first call on a stream that has no scratch yet, made while that
+    stream is being captured, must raise before it launches."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    for _ in range(64):
+        side = torch.cuda.Stream()
+        if (dev.index, side.cuda_stream) not in scratch._made:
+            break
+    else:
+        raise AssertionError("no CUDA stream without a scratch left")
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, stream=side):
+            fn()
+    except RuntimeError as e:
+        if "captured" not in str(e):
+            raise
+    else:
+        raise AssertionError(f"{label}: a first call inside a capture did "
+                             f"not raise")
+    torch.cuda.synchronize()
 
 
 def b6_taus(x: torch.Tensor) -> list:
@@ -1084,8 +1166,21 @@ def phase_b56(dev) -> float:
     phase("B5 sign_quant and B6 topk_mask vs plain, on the card")
     g = gen(dev, 31)
     edge = torch.tensor(EDGE, device=dev)
+    # a first call inside a capture raises, on a stream no call has used
+    x = torch.randn(MLP_D, generator=g, device=dev)
+    tau = ops.topk_threshold(x, MLP_D // 100)
+    check_first_call_in_capture_raises(lambda: sq_mod.sign_quant(x),
+                                       sq_mod._SCRATCH, "B5")
+    check_first_call_in_capture_raises(lambda: tm_mod.topk_mask(x, tau),
+                                       tm_mod._SCRATCH, "B6")
+    # ±1 of a thread's step, of a block's tile and of one wave's elements
+    edges = {n + d for n in (sq_mod.STEP, sq_mod.TILE, tm_mod.TILE,
+                             sq_mod.TILE * sq_mod.wave(dev.index),
+                             tm_mod.TILE * tm_mod.wave(dev.index))
+             for d in (-1, 0, 1)}
+    lengths = sorted(set(B56_LENGTHS) | edges)
     worst = 0.0
-    for n in B56_LENGTHS:
+    for n in lengths:
         x = torch.randn(n, generator=g, device=dev)
         m = min(n, edge.numel())
         x[:m] = edge[:m]
@@ -1100,14 +1195,24 @@ def phase_b56(dev) -> float:
     for leaf in flat.tree_leaves(mlp_tree(g, 1e-3)):
         worst = max(worst, check_b56(leaf.reshape(-1),
                                      f"MLP leaf {tuple(leaf.shape)}"))
-    # an unaligned view takes the kernels' scalar loops
-    x = torch.randn(4099, generator=g, device=dev)[3:]
-    worst = max(worst, check_b56(x, "an unaligned view"))
+    # views 1, 2 and 3 floats off a 16-byte boundary take the scalar loads
+    for n in (sq_mod.TILE + 1, MLP_D):
+        base = torch.randn(n + 3, generator=g, device=dev)
+        for off in (1, 2, 3):
+            worst = max(worst, check_b56(base[off:off + n],
+                                         f"n={n}, {off} float(s) off"))
+    # CUDA graph replays reuse each stream's ticket: it must be back at 0
+    x = torch.randn(MLP_D, generator=g, device=dev)
+    tau = ops.topk_threshold(x, MLP_D // 100)
+    check_graph_replays(lambda: sq_mod.sign_quant(x), "B5")
+    check_graph_replays(lambda: tm_mod.topk_mask(x, tau), "B6")
     print(f"  B5 signs bitwise and scale within rtol {B5_RTOL} (max |diff| "
-          f"{worst:.3e}), B6 masks and counts bitwise, both bitwise "
-          f"repeatable, at n={B56_LENGTHS}, the edge vector, the MLP's 6 "
-          f"leaves and an unaligned view, tau in {EDGE_TAUS} and the sampled "
-          f"k = 1%, 10% (card threshold == CPU threshold)")
+          f"{worst:.3e}), B6 masks and counts bitwise, each bitwise "
+          f"repeatable over 3 calls, at n={lengths}, the edge vector, the "
+          f"MLP's 6 leaves and views 1, 2, 3 floats off a 16-byte boundary, "
+          f"tau in {EDGE_TAUS} and the sampled k = 1%, 10% (card threshold "
+          f"== CPU threshold); 3 CUDA graph replays of 2 calls each bitwise "
+          f"the eager call; a first call inside a capture raises")
     return worst
 
 
@@ -1278,25 +1383,6 @@ def phase_accounted(state: FLState, batches, syn0):
 # ---------------------------------------------------------------------------
 
 
-def call_ms(fn, reps: int = 200) -> float:
-    """Median over ``reps`` eager calls, each between two CUDA events: the
-    time one call occupies the stream, the host's launch overhead
-    included."""
-    for _ in range(10):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def bound_ms(nbytes: int, flops: int) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOP_PER_S * 1e3
@@ -1305,8 +1391,7 @@ def bound_ms(nbytes: int, flops: int) -> tuple:
 
 KERNEL_NAMES = ("fused_cosine_table", "ef_update_table",
                 "pack_signs_table", "unpack_signs_frames",
-                "ssd_chunk_kernel", "sign_quant_partials", "sign_quant_finish",
-                "topk_mask_partials", "topk_mask_finish")
+                "ssd_chunk_kernel", "sign_quant_kernel", "topk_mask_kernel")
 
 
 def in_turns(new, old) -> tuple:

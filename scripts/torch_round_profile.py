@@ -1,6 +1,6 @@
 """Profile one main-path round and one signSGD codec round of the PyTorch
-port on one CUDA card, and time kernels B1, B2, B3a and B3b on their
-shapes.
+port on one CUDA card, and time kernels B1, B2, B3a, B3b, B5 and B6 on
+their shapes.
 
     python3 scripts/torch_round_profile.py [--root DIR] [--label NAME]
                                            [--no-pdl]
@@ -17,14 +17,20 @@ JSON line with
   B3b (``unpack_signs``) flat at d and at 4 Mi + 5, the calls at 4 Mi + 5
   rotating over six vectors (so each reads device memory): device time
   per call, 200 calls in a CUDA graph, median of 21 replays;
+- B5 (``sign_quant``) and B6 (``topk_mask``, at the sampled threshold of
+  k = 1%) the same way at d and at 4 Mi + 5, and each also eagerly (the
+  median over 200 calls of the time one call holds the stream, the host's
+  launch overhead included) and as device kernels per call, counted
+  under ``torch.profiler``;
 - for each round, after two warm rounds, its wall time (median of 3) and,
   from ``torch.profiler`` over one more round, its device kernel time,
   its device kernels and copies, and the kernels of B1, B2 and B3 among
   them.
 
-Only entry points that the port has had since B3 was first ported
-(``pack_signs``, ``unpack_signs``, ``build_fl_round`` with the signSGD
-codec) are called, so that an older checkout runs too.
+Only entry points that the port has had since B3, B5 and B6 were first
+ported (``pack_signs``, ``unpack_signs``, ``sign_quant``, ``topk_mask``,
+``ops.topk_threshold``, ``build_fl_round`` with the signSGD codec) are
+called, so that an older checkout runs too.
 
 Both measurements are ``repro_torch.profiling``'s, as ``chip_smoke.py``
 takes them; the helper is loaded from this checkout whatever ``--root``
@@ -38,13 +44,13 @@ call on one card, one process each::
         python3 scripts/torch_round_profile.py --root $r --label $r
     done
 
-``--no-pdl`` builds that checkout's B1 and B2 sources with the launch
-attribute for programmatic dependent launch taken out (the one line
-``cfg.numAttrs = 1;`` of each source's launch, or of the ``csrc/*.cuh``
-header that holds it for them, made ``0``; the
-``griddepcontrol.wait`` in the kernels then returns at once), into
-``build/kernels_no_pdl/``, and measures with those: the trial that chose to
-launch with it.
+``--no-pdl`` builds that checkout's B1 and B2 sources, and its B5 and B6
+sources where they launch with it, with the launch attribute for
+programmatic dependent launch taken out (the one line ``cfg.numAttrs =
+1;`` of each source's launch, or of the ``csrc/*.cuh`` header that holds
+it for them, made ``0``; the ``griddepcontrol.wait`` in the kernels then
+returns at once), into ``build/kernels_no_pdl/``, and measures with those:
+the trial that chose to launch with it.
 
 It needs a CUDA device and raises without one.
 """
@@ -63,7 +69,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.abspath(os.path.join(HERE, os.pardir))
 N, K, B, S = 10, 5, 32, 10
 MLP_D = 199_210
-# B3 at 4 Mi + 5: the calls rotate over 6 vectors, twice the 50 MB L2
+# B3, B5 and B6 at 4 Mi + 5: the calls rotate over 6 vectors, twice the
+# 50 MB L2
 BIG_N, ROTATE = (1 << 22) + 5, 6
 # each kernel family by the names of its kernels now and before: the
 # leaf-table B1/B2 and the two-pass B1 and one-vector B2 before them; the
@@ -88,9 +95,10 @@ def load_profiling():
     return mod
 
 
-def use_no_pdl_builds(_build) -> None:
-    """Build B1's and B2's sources without the PDL launch attribute and
-    make ``_build.load`` return those libraries."""
+def use_no_pdl_builds(_build) -> list:
+    """Build B1's and B2's sources, and B5's and B6's where they launch
+    with PDL, without the PDL launch attribute and make ``_build.load``
+    return those libraries. Returns the names rebuilt."""
     out = os.path.join(REPO, "build", "kernels_no_pdl")
     os.makedirs(out, exist_ok=True)
     # the sources include their shared headers from beside them
@@ -99,11 +107,13 @@ def use_no_pdl_builds(_build) -> None:
         with open(os.path.join(out, h), "w") as f:
             f.write(text.replace(PDL_LINE, "cfg.numAttrs = 0;"))
     procs = {}
-    for name in ("fused_cosine", "ef_update"):
+    for name in ("fused_cosine", "ef_update", "sign_quant", "topk_mask"):
         src = (_build.CSRC / f"{name}.cu").read_text()
         found = src.count(PDL_LINE) + sum(
             text.count(PDL_LINE) for h, text in headers.items()
             if f'#include "{h}"' in src)
+        if found == 0 and name in ("sign_quant", "topk_mask"):
+            continue             # an older B5 or B6: no PDL to take out
         if found != 1:
             raise RuntimeError(f"{name}.cu and its headers have {found} "
                                f"lines {PDL_LINE!r}, not one: no PDL to "
@@ -121,6 +131,7 @@ def use_no_pdl_builds(_build) -> None:
         if p.returncode != 0:
             raise RuntimeError(f"nvcc {name}.cu without PDL:\n{log}")
         _build._LIBS[name] = ctypes.CDLL(lib)
+    return sorted(procs)
 
 
 def main(argv=None) -> int:
@@ -144,6 +155,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels import bitpack as bp_mod
     from repro_torch.kernels import ef_update as ef_mod
     from repro_torch.kernels import fused_cosine as fc_mod
+    from repro_torch.kernels import sign_quant as sq_mod
+    from repro_torch.kernels import topk_mask as tm_mod
     from repro_torch.models.build import vision_syn_spec
     from repro_torch.models.cnn import MNIST_SPEC, make_mlp
 
@@ -154,9 +167,9 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    if args.no_pdl:
-        use_no_pdl_builds(_build)
-    _build.build_all(("fused_cosine", "ef_update", "bitpack"))
+    no_pdl = use_no_pdl_builds(_build) if args.no_pdl else []
+    _build.build_all(("fused_cosine", "ef_update", "bitpack", "sign_quant",
+                      "topk_mask"))
 
     g = torch.Generator(device=dev)
     g.manual_seed(5)
@@ -182,6 +195,20 @@ def main(argv=None) -> int:
         "pack_signs_4Mi5": prof.graph_ms(lambda: bp_mod.pack_signs(nx())),
         "unpack_signs_4Mi5": prof.graph_ms(
             lambda: bp_mod.unpack_signs(nw(), BIG_N))}
+    tau = ops.topk_threshold(x, MLP_D // 100)
+    pairs = itertools.cycle(
+        [(v, ops.topk_threshold(v, BIG_N // 100)) for v in xs]).__next__
+    b56 = {"sign_quant": (lambda: sq_mod.sign_quant(x),
+                          lambda: sq_mod.sign_quant(nx())),
+           "topk_mask": (lambda: tm_mod.topk_mask(x, tau),
+                         lambda: tm_mod.topk_mask(*pairs()))}
+    kernels_per_call = {}
+    for name, (at_d, at_big) in b56.items():
+        kernel_ms[name] = prof.graph_ms(at_d)
+        kernel_ms[f"{name}_4Mi5"] = prof.graph_ms(at_big)
+        kernel_ms[f"{name}_call"] = prof.call_ms(at_d)
+        kernel_ms[f"{name}_4Mi5_call"] = prof.call_ms(at_big)
+        kernels_per_call[name] = prof.round_profile(at_d)["device_launches"]
     del xs, ws
 
     comp = CompressorConfig(kind="threesfc", syn_steps=S, syn_lr=0.1)
@@ -224,7 +251,8 @@ def main(argv=None) -> int:
     main_round = profile(lambda: one_round(state, batches, 0, syn0=syn0))
     print(json.dumps({
         "label": args.label or root, "device": torch.cuda.get_device_name(0),
-        "pdl": "off" if args.no_pdl else "as built", "kernel_ms": kernel_ms,
+        "pdl": f"off for {no_pdl}" if args.no_pdl else "as built",
+        "kernel_ms": kernel_ms, "kernels_per_call": kernels_per_call,
         **main_round,
         "sign_round": profile(lambda: sign_round(sign_state, batches, 0))}))
     return 0

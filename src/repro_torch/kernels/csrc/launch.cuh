@@ -1,7 +1,8 @@
-// launch.cuh: what the table kernels B1 (fused_cosine.cu), B2 (ef_update.cu)
-// and B3 (bitpack.cu) share around their launches: programmatic dependent
-// launch (PDL) on the device and on the host, and the device guard of their
-// C entry points. Each source includes it into its own library.
+// launch.cuh: what kernels B1 (fused_cosine.cu), B2 (ef_update.cu), B3
+// (bitpack.cu), B5 (sign_quant.cu) and B6 (topk_mask.cu) share around their
+// launches: programmatic dependent launch (PDL) on the device and on the
+// host, and the device guard of their C entry points. Each source includes
+// it into its own library.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,22 +1,35 @@
-// sign_quant: signSGD's int8 signs and mean |x| of one f32 vector, for Hopper
-// (sm_90a).
+// sign_quant: signSGD's int8 signs and mean |x| of one f32 vector, in one
+// launch, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `sign_quant_2d` (src/repro/kernels/sign_quant.py,
 // `_kernel`): there the grid walks (rows, 1024) tiles in order on one core,
 // writes each tile's int8 signs and carries sum |x| in a (1, 1) accumulator
 // from step to step; the wrapper divides by n. Here blocks run in parallel
-// and in no order, so the sum is taken in two passes, as in fused_cosine:
+// and in no order:
 //
-//   pass 1 (sign_quant_partials): a grid-stride loop, a float4 load and a
-//     char4 store per thread where x is 16-byte aligned (a scalar loop
-//     otherwise, and for the tail); every thread keeps one f32 partial of
-//     |x|; a warp-shuffle then shared-memory reduction writes one partial
-//     per block;
-//   pass 2 (sign_quant_finish): one block sums the partials in a fixed order
-//     and writes sum / n, so the scale never goes through the host.
+//   - the grid is at most one wave (as many blocks as the card holds at
+//     once, from the occupancy API) and strides past it; each thread takes
+//     kStep consecutive elements per step, as independent float4 loads, and
+//     writes their signs as one 8-byte store (scalar loads or stores where x
+//     or the signs are off a 16-byte boundary, and for the last, partial
+//     step);
+//   - each block reduces its threads' f32 partials of |x| (warp shuffles,
+//     then shared memory) to one partial, which it writes into its slot of a
+//     scratch buffer with a flag bit set, and draws a ticket (atomicInc). The
+//     block that draws the last ticket reads every slot at once, re-reading a
+//     slot until its flag shows (no fence orders the slot before the ticket),
+//     sums the partials in block order, clears the slots and writes sum / n,
+//     so the scale never goes through the host. atomicInc wraps the ticket
+//     back to 0 in the same operation: the next launch and every CUDA graph
+//     replay find the ticket at 0 and every slot clear;
+//   - the launch sets programmatic dependent launch (csrc/launch.cuh): the
+//     grid may start while the previous kernel on its stream drains, and
+//     waits before its first global access; each block then lets the next
+//     launch on the stream be scheduled at once (it waits in turn).
 //
-// No atomics, and the block count is a function of n alone (the wrapper picks
-// it), so the same input gives bitwise the same scale on every run.
+// No atomics touch the sum, and the block count is a function of n and the
+// card alone (kernels/one_wave.py), so the same input at the same alignment
+// gives bitwise the same scale on every run.
 //
 // Numerics: the reference computes with subnormals flushed to zero (XLA's CPU
 // runtime runs with FTZ/DAZ, a TPU has none), so jnp.sign(1e-40) is 0. Each
@@ -26,28 +39,40 @@
 //
 // Bound on an H100 SXM: one compare and one add per element against 5 bytes
 // moved (4 read, 1 written), so bytes: 5n at 3.35 TB/s, 0.30 us at the MLP's
-// n = 199,210 and 6.3 us at 4 Mi + 5. At the smaller size the launch latency
-// of the two passes dominates; the design keeps the first pass to one
-// coalesced read of x and one write of the signs.
+// n = 199,210 and 6.3 us at 4 Mi + 5. At the smaller size the launch and a
+// chain of L2 round trips dominate (the loads, the ticket, the last block's
+// read of the slots); the design keeps the call to one launch, every load of
+// a step in flight at once, and no memory fence on the chain. Trials on the
+// card chose 8 elements per step over 16 or 32, and a thread's consecutive
+// elements over a warp's coalesced float4s regrouped through shared memory.
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
+
+#include "launch.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kStep = 8;                    // elements per thread per step
+constexpr int kTile = kThreads * kStep;     // elements per block per step
+constexpr int kMaxRows = 8;                 // slots per thread of the sum
+constexpr int kMaxBlocks = kThreads * kMaxRows;
+constexpr unsigned long long kFlag = 1ull << 32;   // a slot holds a partial
 
 __device__ __forceinline__ float flush_subnormal(float v) {
   return fabsf(v) < FLT_MIN ? copysignf(0.f, v) : v;
 }
 
-__device__ __forceinline__ signed char sign_of(float f) {
-  return (signed char)((f > 0.f) - (f < 0.f));
+// The three-valued sign of a flushed value, as the byte of an int8.
+__device__ __forceinline__ uint32_t sign_byte(float f) {
+  return (uint32_t)(uint8_t)(signed char)((f > 0.f) - (f < 0.f));
 }
 
 // Sums one f32 per thread of a kThreads block in a fixed order; thread 0
-// holds the block's sum on return.
+// holds the block's sum on return. Callers separate two uses with a
+// __syncthreads().
 __device__ __forceinline__ float block_sum(float a) {
   __shared__ float smem[kWarps];
   const int lane = threadIdx.x & 31;
@@ -66,72 +91,152 @@ __device__ __forceinline__ float block_sum(float a) {
   return a;
 }
 
-__global__ void __launch_bounds__(kThreads)
-sign_quant_partials(const float* __restrict__ x, signed char* __restrict__ signs,
-                    float* __restrict__ partials, int64_t n, int vec) {
-  float asum = 0.0f;
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  const int64_t tid = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  int64_t head = 0;
-  if (vec) {
-    const int64_t n4 = n >> 2;
-    const float4* x4 = reinterpret_cast<const float4*>(x);
-    char4* s4 = reinterpret_cast<char4*>(signs);
-    for (int64_t i = tid; i < n4; i += stride) {
-      const float4 v = __ldg(x4 + i);
-      const float a = flush_subnormal(v.x), b = flush_subnormal(v.y);
-      const float c = flush_subnormal(v.z), d = flush_subnormal(v.w);
-      s4[i] = make_char4(sign_of(a), sign_of(b), sign_of(c), sign_of(d));
-      asum += fabsf(a);
-      asum += fabsf(b);
-      asum += fabsf(c);
-      asum += fabsf(d);
-    }
-    head = n4 << 2;
-  }
-  for (int64_t i = head + tid; i < n; i += stride) {
-    const float a = flush_subnormal(__ldg(x + i));
-    signs[i] = sign_of(a);
-    asum += fabsf(a);
-  }
-  asum = block_sum(asum);
-  if (threadIdx.x == 0) partials[blockIdx.x] = asum;
+// Lets the next launch on the stream be scheduled now; it still waits in
+// its own grid_dependency_wait() for this grid to complete.
+__device__ __forceinline__ void trigger_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+// A slot's store and load: single-copy atomic (strong, gpu scope), unordered
+// with anything else.
+__device__ __forceinline__ void st_slot(unsigned long long* p,
+                                        unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" :: "l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long ld_slot(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
+               : "memory");
+  return v;
 }
 
 __global__ void __launch_bounds__(kThreads)
-sign_quant_finish(const float* __restrict__ partials, float* __restrict__ scale,
-                  int rows, float n) {
+sign_quant_kernel(const float* __restrict__ x, signed char* __restrict__ signs,
+                  unsigned long long* slots, unsigned int* ticket,
+                  float* __restrict__ scale, int64_t n, float nf, int vec_x,
+                  int vec_s) {
+  port::grid_dependency_wait();
+  trigger_dependents();
   float asum = 0.0f;
-  for (int r = threadIdx.x; r < rows; r += kThreads) asum += partials[r];
+  const int64_t steps = (n + kStep - 1) / kStep;
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  for (int64_t c = (int64_t)blockIdx.x * kThreads + threadIdx.x; c < steps;
+       c += stride) {
+    const int64_t e0 = c * kStep;
+    const bool full = e0 + kStep <= n;
+    float v[kStep];
+    if (full && vec_x) {
+      const float4* p = reinterpret_cast<const float4*>(x + e0);
+      float4 q[kStep / 4];
+#pragma unroll
+      for (int k = 0; k < kStep / 4; ++k) q[k] = __ldg(p + k);
+#pragma unroll
+      for (int k = 0; k < kStep / 4; ++k) {
+        v[4 * k + 0] = q[k].x;
+        v[4 * k + 1] = q[k].y;
+        v[4 * k + 2] = q[k].z;
+        v[4 * k + 3] = q[k].w;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kStep; ++i)
+        v[i] = e0 + i < n ? __ldg(x + e0 + i) : 0.0f;
+    }
+    // little-endian words of four sign bytes each; |x| in element order
+    uint32_t w[kStep / 4];
+#pragma unroll
+    for (int k = 0; k < kStep / 4; ++k) {
+      w[k] = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float f = flush_subnormal(v[4 * k + i]);
+        w[k] |= sign_byte(f) << (8 * i);
+        asum += fabsf(f);
+      }
+    }
+    if (full && vec_s) {
+      *reinterpret_cast<uint2*>(signs + e0) = make_uint2(w[0], w[1]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kStep; ++i)
+        if (e0 + i < n)
+          signs[e0 + i] = (signed char)(w[i / 4] >> (8 * (i % 4)));
+    }
+  }
   asum = block_sum(asum);
-  if (threadIdx.x == 0) scale[0] = asum / n;
+
+  __shared__ unsigned int s_last;
+  if (threadIdx.x == 0) {
+    st_slot(slots + blockIdx.x, kFlag | __float_as_uint(asum));
+    s_last = atomicInc(ticket, gridDim.x - 1) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  // the last block: every slot, loaded at once, summed in block order
+  unsigned long long p[kMaxRows];
+#pragma unroll
+  for (int i = 0; i < kMaxRows; ++i) {
+    const int r = threadIdx.x + i * kThreads;
+    p[i] = r < (int)gridDim.x ? ld_slot(slots + r) : kFlag;
+  }
+  float total = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kMaxRows; ++i) {
+    const int r = threadIdx.x + i * kThreads;
+    while (!(p[i] & kFlag)) p[i] = ld_slot(slots + r);
+    total += __uint_as_float((unsigned int)p[i]);
+    if (r < (int)gridDim.x) slots[r] = 0;
+  }
+  total = block_sum(total);
+  if (threadIdx.x == 0) scale[0] = total / nf;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Threads per block of both passes; the wrapper sizes the grid and the
-// scratch from it.
-int sign_quant_threads() { return kThreads; }
+// Elements per block per step; the wrapper sizes the grid from it.
+int sign_quant_tile() { return kTile; }
 
-// x: n f32 (n >= 1); signs: n int8; partials: blocks f32 scratch; scale: 1
-// f32 = sum |flush(x)| / n. Launches both passes on `stream`, on the caller's
-// current device, and returns cudaGetLastError().
-int sign_quant_launch(const float* x, signed char* signs, float* partials,
-                      float* scale, int64_t n, int64_t blocks, void* stream) {
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  // the char4 stores need signs 4-byte aligned; the wrapper's fresh
-  // allocation always is
-  const int vec = ((reinterpret_cast<uintptr_t>(x) & 15) == 0) &&
-                  ((reinterpret_cast<uintptr_t>(signs) & 3) == 0);
-  sign_quant_partials<<<(unsigned)blocks, kThreads, 0, s>>>(
-      x, signs, partials, n, vec);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  sign_quant_finish<<<1, kThreads, 0, s>>>(partials, scale, (int)blocks,
-                                           (float)n);
-  return (int)cudaGetLastError();
+// Blocks of one wave of sign_quant_kernel on `device` (at most the
+// kMaxBlocks slots the last block sums), into *wave.
+int sign_quant_wave(int device, int* wave) {
+  return port::on_device(device, [&] {
+    int sms = 0, per_sm = 0;
+    cudaError_t err =
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, sign_quant_kernel, kThreads, 0);
+    if (err == cudaSuccess) {
+      const int w = sms * (per_sm > 0 ? per_sm : 1);
+      *wave = w < kMaxBlocks ? w : kMaxBlocks;
+    }
+    return err;
+  });
+}
+
+// x: n f32 (n >= 1); signs: n int8; slots: `blocks` u64, all 0 between
+// launches on `stream`; ticket: one u32, 0 between launches on `stream`;
+// scale: 1 f32 = sum |flush(x)| / n. 1 <= blocks <= one wave. Launches on
+// `stream` on `device` (the caller's current device is restored), with
+// programmatic stream serialization, and returns the launch's error.
+int sign_quant_launch(const float* x, signed char* signs,
+                      unsigned long long* slots, unsigned int* ticket,
+                      float* scale, int64_t n, int blocks, int device,
+                      void* stream) {
+  if (n < 1 || blocks < 1 || blocks > kMaxBlocks)
+    return cudaErrorInvalidValue;
+  const int vec_x = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const int vec_s = (reinterpret_cast<uintptr_t>(signs) & 7) == 0;
+  return port::on_device(device, [&] {
+    return port::launch_pdl(sign_quant_kernel, (unsigned)blocks, kThreads,
+                            reinterpret_cast<cudaStream_t>(stream), x, signs,
+                            slots, ticket, scale, n, (float)n, vec_x, vec_s);
+  });
 }
 
 }  // extern "C"

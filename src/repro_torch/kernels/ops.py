@@ -13,8 +13,11 @@
 * ``sign_quant`` — signSGD's int8 signs and mean |x| through kernel B5
   (``kernels.sign_quant``); ``topk_threshold`` + ``topk_mask`` — DGC's
   sampled threshold (``torch.topk`` over a strided sample) and the
-  threshold select through kernel B6 (``kernels.topk_mask``). Both kernels
-  decide signs and thresholds with subnormals flushed, as the reference.
+  threshold select through kernel B6 (``kernels.topk_mask``). Each is one
+  launch per call (``kernels/one_wave.py``: at most one wave of blocks, the
+  block that draws the last ticket finishing the sum or the count on the
+  device). Both kernels decide signs and thresholds with subnormals
+  flushed, as the reference.
 
 On a CUDA device both tree forms hand the raveled f32 leaves to the
 kernels' leaf-table entries (``fused_cosine_leaves``, ``ef_update_leaves``;

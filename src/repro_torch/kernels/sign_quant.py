@@ -2,20 +2,25 @@
 
 Replaces the TPU kernel ``sign_quant_2d`` of the JAX package
 (``repro/kernels/sign_quant.py``). The CUDA source is ``csrc/sign_quant.cu``:
-one pass writes the signs and leaves one partial of Σ|x| per block, a
-second, one-block pass sums the partials in a fixed order and writes
-Σ|x| / n on the device; bound by the 5n bytes it moves.
+one launch of at most one wave of blocks (``kernels/one_wave.py``), each
+thread taking 8 elements per step (two float4 loads, one 8-byte store of
+signs), each block leaving one partial of Σ|x| in a slot of scratch, and
+the block that draws the last ticket summing the slots in block order and
+writing Σ|x| / n on the device; bound by the 5n bytes it moves.
 
 Contract: ``(n,) f32 -> ((n,) int8 signs, () f32 scale)``; the sign is
 three-valued (0 for a zero, unlike B3's 1-bit sign) and both the sign and
 |x| are taken after a subnormal is flushed to zero (``kernels.ftz``), as
 the reference computes them. n = 0 gives ``(empty, NaN)`` (0/0, as the
 reference) without a launch. An ``x`` off a 16-byte boundary is taken by
-the kernel's scalar loop.
+the kernel's scalar loads.
 
 ``sign_quant(x)`` runs the plain PyTorch version for a tensor on the CPU
 and launches the kernel for a tensor on a CUDA device; there is no
-fallback from one to the other. ``LAUNCHES`` counts kernel launches.
+fallback from one to the other. ``LAUNCHES`` counts kernel launches. Each
+stream gets its scratch at its first call, which must not be inside a
+CUDA graph capture (it raises); later calls on that stream may be
+captured and replayed.
 """
 from __future__ import annotations
 
@@ -24,33 +29,53 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, one_wave
 from repro_torch.kernels.ftz import flush_subnormal
 
 # kernel launches since import (or since a caller reset it to 0)
 LAUNCHES = 0
 
-# first-pass grid cap, as B1's: the block count depends on n alone, which
-# keeps the sum order fixed
-MAX_BLOCKS = 1024
+# threads per block and elements per thread per step of csrc/sign_quant.cu
+THREADS = 256
+STEP = 8
+TILE = THREADS * STEP
 
 _LIB = None
-_THREADS = 0
 
 
 def _lib() -> ctypes.CDLL:
-    global _LIB, _THREADS
+    global _LIB
     if _LIB is None:
         lib = _build.load("sign_quant")
-        lib.sign_quant_threads.argtypes = []
-        lib.sign_quant_threads.restype = ctypes.c_int
+        lib.sign_quant_tile.argtypes = []
+        lib.sign_quant_tile.restype = ctypes.c_int
+        lib.sign_quant_wave.argtypes = [ctypes.c_int,
+                                        ctypes.POINTER(ctypes.c_int)]
+        lib.sign_quant_wave.restype = ctypes.c_int
         lib.sign_quant_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
         lib.sign_quant_launch.restype = ctypes.c_int
-        _THREADS = lib.sign_quant_threads()
+        if lib.sign_quant_tile() != TILE:
+            raise RuntimeError(f"sign_quant.cu has a tile of "
+                               f"{lib.sign_quant_tile()} elements, "
+                               f"sign_quant.py {TILE}")
         _LIB = lib
     return _LIB
+
+
+def wave(device_index: int) -> int:
+    """Blocks of one wave of the kernel on that CUDA device."""
+    got = ctypes.c_int(0)
+    rc = _lib().sign_quant_wave(device_index, ctypes.byref(got))
+    if rc != 0:
+        raise RuntimeError(f"sign_quant wave query failed: cudaError {rc}")
+    return got.value
+
+
+# per (device index, stream): a slot per block of a wave, the ticket's word
+_SCRATCH = one_wave.Scratch("sign_quant", wave)
 
 
 def sign_quant_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -76,21 +101,20 @@ def sign_quant(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     _check(x)
     if x.device.type == "cpu":
         return sign_quant_plain(x)
-    n = x.numel()
-    signs = torch.empty(n, dtype=torch.int8, device=x.device)
+    device, n = x.device, x.numel()
     if n == 0:
-        return signs, torch.full((), float("nan"), device=x.device)
-    lib = _lib()
-    # first-pass grid: one float4 per thread, at most MAX_BLOCKS
-    blocks = max(1, min(-(-n // (_THREADS * 4)), MAX_BLOCKS))
-    partials = torch.empty(blocks, dtype=torch.float32, device=x.device)
-    scale = torch.empty((), dtype=torch.float32, device=x.device)
-    # the launcher uses the current device; this restores the caller's after
-    with torch.cuda.device(x.device):
-        rc = lib.sign_quant_launch(
-            x.data_ptr(), signs.data_ptr(), partials.data_ptr(),
-            scale.data_ptr(), n, blocks,
-            torch.cuda.current_stream(x.device).cuda_stream)
+        return (torch.empty(0, dtype=torch.int8, device=device),
+                torch.full((), float("nan"), device=device))
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    words = _SCRATCH.get(device, stream)
+    wave = words.numel() - 1
+    signs = torch.empty(n, dtype=torch.int8, device=device)
+    scale = torch.empty((), dtype=torch.float32, device=device)
+    slots = words.data_ptr()
+    rc = _lib().sign_quant_launch(
+        x.data_ptr(), signs.data_ptr(), slots, slots + 8 * wave,
+        scale.data_ptr(), n, one_wave.grid_blocks(n, TILE, wave),
+        device.index, stream)
     if rc != 0:
         raise RuntimeError(f"sign_quant launch failed: cudaError {rc}")
     LAUNCHES += 1

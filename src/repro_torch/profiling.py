@@ -1,5 +1,5 @@
-"""Device timing on one CUDA card: a call's time in a CUDA graph, and a
-round's wall time beside its device kernel time.
+"""Device timing on one CUDA card: a call's time in a CUDA graph and
+eagerly, and a round's wall time beside its device kernel time.
 
 ``chip_smoke.py`` and ``scripts/torch_round_profile.py`` both time with
 these. The module imports only ``torch`` and the standard library, so the
@@ -44,6 +44,25 @@ def graph_ms(fn: Callable[[], object], reps: int = 200,
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def call_ms(fn: Callable[[], object], reps: int = 200) -> float:
+    """Median over ``reps`` eager calls, each between two CUDA events: the
+    time one call occupies the stream, the host's launch overhead
+    included."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
     return statistics.median(times)
 
 

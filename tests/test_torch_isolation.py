@@ -143,7 +143,8 @@ def test_library_names_follow_the_headers_they_include(tmp_path,
     including = {n for n in _build.KERNELS
                  if '#include "launch.cuh"' in (tmp_path / f"{n}.cu")
                  .read_text()}
-    assert including == {"bitpack", "ef_update", "fused_cosine"}
+    assert including == {"bitpack", "ef_update", "fused_cosine", "sign_quant",
+                         "topk_mask"}
     header = tmp_path / "launch.cuh"
     header.write_text(header.read_text() + "// edited\n")
     changed = {n for n in _build.KERNELS if _build._lib_path(n) != before[n]}
