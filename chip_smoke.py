@@ -46,8 +46,10 @@ Phases, in order; any failure exits non-zero:
              version, a one-call PyTorch yardstick where one exists, its
              bound, and the wall and device time (and device kernel count)
              of one main-path round, of one signSGD codec round (and of
-             the same round decoding frame by frame) and of one FedSynth
-             round; B1's and B2's tree forms on the MLP's 6 leaves
+             the same round decoding frame by frame), of one FedSynth
+             round, of one faulted main-path round (phase 14's knobs) and
+             of one ConvNet and one RegNet 3SFC round; B1's and B2's tree
+             forms on the MLP's 6 leaves and on RegNet's 32 (d = 559,924)
              beside the old route rebuilt from the same kernel (cat, then
              one flat call), in turns; B3a's tree entry into a frame beside
              the old route (cat of the leaves, the flat B3a, the frame's
@@ -98,8 +100,31 @@ Phases, in order; any failure exits non-zero:
              ``build_fl_round`` (N=10, K=5, B=32, float mode, EF on, 3
              rounds): N B1 launches per round and no other kernel; one
              FedSynth round on the card against the same round on the CPU.
+14. faults — the trainer with ``--participation-rate 0.7 --drop-rate 0.2
+             --straggler-rate 0.3 --staleness-max 2 --fault-seed 5`` for 4
+             rounds: 3SFC+EF float (N·(S+1) B1 and N B2 per round: every
+             client trains and encodes, scheduled or not), then signSGD
+             with ``--wire codec`` (N B3a, 1 B3b, N B1 per round); the
+             masked pipeline under the null schedule bitwise the unfaulted
+             round for 3SFC float, 3SFC fused and signSGD codec; one round
+             under an injected schedule (a skipped, a dropped and two late
+             clients) on the card and on the CPU within the main path's
+             tolerances, the skipped client's EF row bitwise its input and
+             the dropped client's bitwise u = g + e as the card computes it.
+15. CNNs   — MnistNet on FMNIST, ConvNet and ResNet on CIFAR-10, RegNet on
+             CIFAR-100 at their published widths (54,840, 390,986, 77,706
+             and 559,924 parameters in 8-32 leaves: one leaf table): the
+             loss gradient and the encoder's gradient to D_syn (the double
+             backward) on the card within CNN_GRAD_TOL of the CPU's f64
+             (cuDNN's loss gradient reported beside); the trainer, 2 rounds
+             of 3SFC+EF each: N·(S+1) B1 and N B2 launches per round,
+             finite metrics; then one round of each (2 clients) on the card
+             and on the CPU with no encoder step, within ten times the gap
+             that a nudge of the params by a few ulps opens on the card,
+             and at the trainer's S reported (the CNN rounds are
+             ill-conditioned; nothing bitwise is claimed for them).
 
-The phases run in the order 1-6, 8-13, 7, so that the times can report each
+The phases run in the order 1-6, 8-15, 7, so that the times can report each
 kernel's launches on its path. The last lines are one JSON object with every
 kernel's numbers, the list of kernels, and ``{"ok": true, "device": {...}}``.
 """
@@ -132,6 +157,7 @@ from repro_torch.core.strategy import leaf_k, make_strategy  # noqa: E402
 from repro_torch.core.threesfc import SynData, init_syn  # noqa: E402
 from repro_torch.fl.budget import matched_compressors  # noqa: E402
 from repro_torch.fl.client import local_train  # noqa: E402
+from repro_torch.fl import faults  # noqa: E402
 from repro_torch.fl.round import FLState, build_fl_round  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import bitpack as bp_mod  # noqa: E402
@@ -143,8 +169,10 @@ from repro_torch.kernels import ssd_chunk as ssd_mod  # noqa: E402
 from repro_torch.kernels import topk_mask as tm_mod  # noqa: E402
 from repro_torch.kernels.ftz import FLT_MIN, flush_subnormal  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
 from repro_torch.models.build import build_model, vision_syn_spec  # noqa: E402
-from repro_torch.models.cnn import MNIST_SPEC, make_mlp  # noqa: E402
+from repro_torch.models.cnn import (DATASETS, MNIST_SPEC,  # noqa: E402
+                                    make_mlp, make_paper_model)
 from repro_torch.profiling import (call_ms, graph_ms,  # noqa: E402
                                   round_profile)
 
@@ -197,13 +225,44 @@ B3_FRAMES = (1, 3, 10)
 B3_SPECIALS = (0.0, -0.0, math.nan, math.inf, -math.inf, 1e-40, -1e-40,
                -3e-39, -FLT_MIN)
 EF_STEPS = 3
+# phase 14: the trainer's fault flags (a schedule from fault_seed), and the
+# bound on a late payload's delay
+FAULT_KNOBS = dict(participation_rate=0.7, drop_rate=0.2, straggler_rate=0.3,
+                   staleness_max=2, fault_seed=5)
+FAULT_ROUNDS = 4
+# phase 15: the paper's CNNs on their tables' datasets, parameter counts at
+# the published widths
+CNN_CELLS = (("mnistnet", "fmnist", 54_840), ("convnet", "cifar10", 390_986),
+             ("resnet", "cifar10", 77_706), ("regnet", "cifar100", 559_924))
+CNN_ROUNDS = 2
+# clients of phase 15's card-vs-CPU rounds (the CPU's time bounds it)
+CNN_CPU_N = 2
+# The CNN rounds are ill-conditioned: params moved by a few ulps (a
+# relative CNN_NUDGE·U(-1/2, 1/2)) move a round's update far more than the
+# MLP's, through the K SGD steps' ReLU kinks and most through the
+# encoder's RMS-normalized steps. So the building blocks are held at f32's
+# level (conv_precision), and the card-vs-CPU round with no encoder step
+# (S = 0: local training, one objective, Eq. 8, B1, B2, the aggregate):
+# its update's and EF's relative L2 gaps to the CPU's within
+# CNN_ROUND_FACTOR times the gaps the nudge opens on the card, and never
+# less than CNN_ROUND_FLOOR. At the trainer's S the gaps are reported.
+CNN_CHECK_S = 0
+CNN_NUDGE = 1e-6
+CNN_ROUND_FACTOR, CNN_ROUND_FLOOR = 10.0, 1e-4
+# a CNN's loss gradient on the card against the CPU's in f64: the worst
+# leaf's largest error over its largest element, at f32's level (the CPU's
+# own f32 gradients reach 3e-6)
+CNN_GRAD_TOL = 1e-5
 # vectors of 4 Mi + 5 elements the B5/B6 timing rotates over: 6 x 16.8 MB
 # of inputs, twice the H100's 50 MB L2
 L2_ROTATE = 6
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 def reset_counts() -> None:
@@ -588,14 +647,17 @@ def phase_b3_entries(dev, g: torch.Generator) -> None:
 # ---------------------------------------------------------------------------
 
 
-def run_trainer(out_dir: str, compressor: str, wire: str):
-    """``train.main`` for ROUNDS rounds with every counter set to 0 just
+def run_trainer(out_dir: str, compressor: str, wire: str, *,
+                rounds: int = ROUNDS, model: str = "mlp",
+                dataset: str = "mnist", extra=()):
+    """``train.main`` for ``rounds`` rounds with every counter set to 0 just
     before; returns (state, launches, wall seconds), after checking the
     metrics rows are finite."""
-    argv = ["--model", "mlp", "--dataset", "mnist", "--compressor",
+    argv = ["--model", model, "--dataset", dataset, "--compressor",
             compressor, "--wire", wire, "--clients", str(N), "--local-steps",
-            str(K), "--batch", str(B), "--rounds", str(ROUNDS),
-            "--eval-every", "1", "--device", "cuda", "--out", out_dir]
+            str(K), "--batch", str(B), "--rounds", str(rounds),
+            "--eval-every", "1", "--device", "cuda", "--out", out_dir,
+            *extra]
     reset_counts()
     t0 = time.perf_counter()
     state = train.main(argv)
@@ -604,8 +666,8 @@ def run_trainer(out_dir: str, compressor: str, wire: str):
     launched = counts()
     with open(os.path.join(out_dir, "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
-    if len(rows) != ROUNDS:
-        raise AssertionError(f"expected {ROUNDS} metrics rows, got {rows}")
+    if len(rows) != rounds:
+        raise AssertionError(f"expected {rounds} metrics rows, got {rows}")
     for r in rows:
         if not (math.isfinite(r["loss"]) and math.isfinite(r["cos"])):
             raise AssertionError(f"non-finite metrics: {r}")
@@ -1379,6 +1441,316 @@ def phase_accounted(state: FLState, batches, syn0):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the in-round fault model on the main path
+# ---------------------------------------------------------------------------
+
+
+def fault_flags() -> list:
+    return [a for k, v in FAULT_KNOBS.items()
+            for a in (f"--{k.replace('_', '-')}", str(v))]
+
+
+def mlp_round(method: str, params, *, wire: str = "float",
+              fused: bool = False, fault_schedule_fn=None, **knobs):
+    """One MLP round at the main path's N, K, B of the trainer's ``method``
+    (``fl.budget.matched_compressors``), through ``build_fl_round``."""
+    model = make_mlp(MNIST_SPEC)
+    comp = matched_compressors("mlp", MNIST_SPEC, MLP_D)[method]
+    strategy = make_strategy(comp, loss_fn=model.syn_loss,
+                             syn_spec=vision_syn_spec(MNIST_SPEC, comp),
+                             local_lr=0.01)
+    run = RunConfig(fl=FLConfig(num_clients=N, local_steps=K, local_lr=0.01,
+                                local_batch=B, compressor=comp),
+                    wire=wire, fused_decode=fused, **knobs)
+    codec = strategy.wire_codec(params) if wire == "codec" else None
+    return build_fl_round(model.loss, strategy, run, codec=codec,
+                          fault_schedule_fn=fault_schedule_fn)
+
+
+def injected_schedule(r: int, n: int) -> faults.FaultSchedule:
+    """Client 0 skipped, client 1 dropped, clients 2 and 3 late by 1 and 2
+    rounds, the rest healthy."""
+    ids = torch.arange(n)
+    delay = torch.where(ids == 2, 1, torch.where(ids == 3, 2, 0)).to(
+        torch.int32)
+    return faults.FaultSchedule(ids != 0, ids != 1, delay,
+                                faults.staleness_weight(delay))
+
+
+def state_to_cpu(st: FLState) -> FLState:
+    return FLState(to_cpu(st.params), to_cpu(st.ef), st.round,
+                   None if st.buf is None else to_cpu(st.buf),
+                   None if st.buf_w is None else st.buf_w.cpu())
+
+
+def tree_bits_equal(a, b) -> bool:
+    la, lb = flat.tree_leaves(a), flat.tree_leaves(b)
+    return len(la) == len(lb) and all(same_bits(x, y) for x, y in zip(la, lb))
+
+
+def check_null_schedule(label: str, method: str, state: FLState, batches,
+                        syn0, **kw) -> None:
+    """One round of the masked pipeline under the null schedule against
+    the unfaulted round from the same state: params, EF and metrics
+    bitwise."""
+    plain = mlp_round(method, state.params, **kw)
+    null = mlp_round(method, state.params, **kw,
+                     fault_schedule_fn=lambda r, n: faults.null_schedule(n))
+    sa, ma = plain(state, batches, 0, syn0=syn0)
+    sb, mb = null(state, batches, 0, syn0=syn0)
+    metrics = [(getattr(ma, f), getattr(mb, f))
+               for f in ("loss", "cosine", "payload_floats", "update_norm")]
+    if not (tree_bits_equal(sa.params, sb.params)
+            and tree_bits_equal(sa.ef, sb.ef)
+            and all(same_bits(x, y) for x, y in metrics)
+            and float(mb.arrivals) == float(N)):
+        raise AssertionError(f"{label}: the masked pipeline under the null "
+                             f"schedule differs from the unfaulted round")
+    print(f"  {label}: null schedule == unfaulted round, bitwise (params, "
+          f"EF, loss, cosine, payload floats, update norm), arrivals "
+          f"{float(mb.arrivals):g}")
+
+
+def phase_faults(out_dir: str, state: FLState, batches, syn0):
+    phase(f"faults: the trainer with {fault_flags()}")
+    fstate, launched, wall = run_trainer(
+        os.path.join(out_dir, "faults"), "threesfc", "float",
+        rounds=FAULT_ROUNDS, extra=fault_flags())
+    # every client trains and encodes, scheduled or not
+    want = only(fused_cosine=FAULT_ROUNDS * N * (S + 1),
+                ef_update=FAULT_ROUNDS * N)
+    if launched != want:
+        raise AssertionError(f"faulted 3SFC launches {launched}, expected "
+                             f"{want}")
+    knobs = {k: v for k, v in FAULT_KNOBS.items() if k != "fault_seed"}
+    for r in range(FAULT_ROUNDS):
+        sch = faults.fault_schedule(FAULT_KNOBS["fault_seed"], r, N, **knobs)
+        print(f"  round {r}: {int(sch.participate.sum())} scheduled, "
+              f"{int((sch.participate & ~sch.delivered).sum())} dropped, "
+              f"{int(sch.arrives_late.sum())} late "
+              f"(delays {sch.delay.tolist()})")
+    print(f"  threesfc: {FAULT_ROUNDS} rounds in {wall:.2f} s, launches "
+          f"{launched}, weight in flight "
+          f"{float(faults.pending_mass(fstate.buf_w)):g}")
+    _, launched, wall = run_trainer(
+        os.path.join(out_dir, "faults_sign"), "signsgd", "codec",
+        rounds=FAULT_ROUNDS, extra=fault_flags())
+    want = only(fused_cosine=FAULT_ROUNDS * N, pack_signs=FAULT_ROUNDS * N,
+                unpack_signs=FAULT_ROUNDS)
+    if launched != want:
+        raise AssertionError(f"faulted signsgd codec launches {launched}, "
+                             f"expected {want}")
+    print(f"  signsgd codec: {FAULT_ROUNDS} rounds in {wall:.2f} s, "
+          f"launches {launched}")
+    check_null_schedule("3SFC float", "threesfc", state, batches, syn0)
+    check_null_schedule("3SFC fused", "threesfc", state, batches, syn0,
+                        fused=True)
+    check_null_schedule("signSGD codec", "signsgd", state, batches, None,
+                        wire="codec")
+    # an injected skip/drop/late round, on the card and on the CPU
+    injected = mlp_round("threesfc", fstate.params, staleness_max=2,
+                         fault_schedule_fn=injected_schedule)
+    s_card, m_card = injected(fstate, batches, 0, syn0=syn0)
+    s_cpu, m_cpu = injected(state_to_cpu(fstate), to_cpu(batches), 0,
+                            syn0=SynData(*to_cpu(list(syn0))))
+    assert_close("faulted round card vs CPU params", s_card.params,
+                 s_cpu.params, PARAM_TOL)
+    assert_close("faulted round card vs CPU EF", s_card.ef, s_cpu.ef, EF_TOL)
+    assert_close("faulted round card vs CPU staleness buffer", s_card.buf,
+                 s_cpu.buf, EF_TOL)
+    row = lambda tree, i: flat.tree_map(lambda e: e[i], tree)
+    if not tree_bits_equal(row(s_card.ef, 0), row(fstate.ef, 0)):
+        raise AssertionError("the skipped client's EF row is not its input "
+                             "row, bitwise")
+    g, _ = local_train(make_mlp(MNIST_SPEC).loss, fstate.params,
+                       row(batches, 1), 0.01)
+    if not tree_bits_equal(row(s_card.ef, 1),
+                           flat.tree_add(g, row(fstate.ef, 1))):
+        raise AssertionError("the dropped client's EF row is not u = g + e "
+                             "as the card computes it, bitwise")
+    print(f"  injected schedule (0 skipped, 1 dropped, 2 and 3 late): "
+          f"skipped EF row bitwise its input, dropped EF row bitwise u; "
+          f"arrivals card {float(m_card.arrivals):.8g}, CPU "
+          f"{float(m_cpu.arrivals):.8g}")
+    return mlp_round("threesfc", fstate.params, **FAULT_KNOBS), fstate
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the paper's four CNNs at their published widths
+# ---------------------------------------------------------------------------
+
+
+def cnn_round(name: str, dataset: str, clients: int, steps: int = S):
+    """A 3SFC+EF float round of ``name`` at the trainer's K and B with
+    ``steps`` encoder steps, for ``clients`` clients."""
+    spec = DATASETS[dataset]
+    model = make_paper_model(name, spec)
+    comp = CompressorConfig(kind="threesfc", syn_steps=steps, syn_lr=0.1)
+    strategy = make_strategy(comp, loss_fn=model.syn_loss,
+                             syn_spec=vision_syn_spec(spec, comp),
+                             local_lr=0.01)
+    run = RunConfig(fl=FLConfig(num_clients=clients, local_steps=K,
+                                local_lr=0.01, local_batch=B,
+                                compressor=comp))
+    return build_fl_round(model.loss, strategy, run), strategy
+
+
+def cnn_inputs(dev, dataset: str, spec, clients: int):
+    g = gen(dev, 47)
+    shape = DATASETS[dataset].input_shape
+    batches = {"x": torch.rand((clients, K, B, *shape), generator=g,
+                               device=dev),
+               "y": torch.randint(0, DATASETS[dataset].num_classes,
+                                  (clients, K, B), generator=g, device=dev)}
+    syns = [init_syn(g, spec) for _ in range(clients)]
+    return batches, SynData(*[torch.stack(ts) for ts in zip(*syns)])
+
+
+def rel_gap(a, b) -> float:
+    """‖a − b‖ / ‖a‖ over whole trees, on the host."""
+    return float(flat.tree_norm(flat.tree_sub(a, b))) / float(
+        flat.tree_norm(a))
+
+
+def cudnn_conv2d(p, x, stride: int = 1, padding: str = "SAME"):
+    """``layers.conv2d`` through ``F.conv2d`` (cuDNN on the card): only to
+    set cuDNN's precision beside the port's."""
+    w = p["w"]
+    xc = x.permute(0, 3, 1, 2)
+    if padding == "SAME":
+        (ht, hb), (wl, wr) = (
+            layers.same_padding(x.shape[1], w.shape[0], stride),
+            layers.same_padding(x.shape[2], w.shape[1], stride))
+        xc = torch.nn.functional.pad(xc, (wl, wr, ht, hb))
+    y = torch.nn.functional.conv2d(xc, w.permute(3, 2, 0, 1), stride=stride)
+    return y.permute(0, 2, 3, 1) + p["b"]
+
+
+def conv_precision(dev) -> None:
+    """Each CNN at its published width, on the card against the CPU in
+    f64: the loss gradient on a batch of B images, through the port's
+    convolutions and through cuDNN's (``cudnn_conv2d``, TF32 off), and the
+    3SFC encoder's gradient to D_syn (the double backward: ∇ of ⟨∇_w F(D_syn,
+    w), t⟩) through the port's. Each is the worst leaf's largest error over
+    its largest element; the port's must be at f32's level (CNN_GRAD_TOL),
+    cuDNN's is reported."""
+    bad = {}
+    for name, dataset, _ in CNN_CELLS:
+        spec = DATASETS[dataset]
+        model = make_paper_model(name, spec)
+        g = gen(torch.device("cpu"), 0)
+        params = model.init(g)
+        x = torch.rand((B, *spec.input_shape), generator=g)
+        y = torch.randint(0, spec.num_classes, (B,), generator=g)
+        comp = CompressorConfig(kind="threesfc", syn_batch=1)
+        syn = init_syn(g, vision_syn_spec(spec, comp))
+        target = flat.tree_map(
+            lambda p: 0.01 * torch.randn(p.shape, generator=g), params)
+
+        def grads(device, dtype):
+            w = flat.tree_map(lambda p: p.to(device=device, dtype=dtype)
+                              .requires_grad_(True), params)
+            loss = model.loss(w, {"x": x.to(device=device, dtype=dtype),
+                                  "y": y.to(device)})
+            gl = torch.autograd.grad(loss, flat.tree_leaves(w))
+            sv = SynData(*[t.to(device=device, dtype=dtype)
+                           .requires_grad_(True) for t in syn])
+            gw = torch.autograd.grad(model.syn_loss(w, sv),
+                                     flat.tree_leaves(w), create_graph=True)
+            dot = sum((a * b.to(device=device, dtype=dtype)).sum()
+                      for a, b in zip(gw, flat.tree_leaves(target)))
+            return gl, torch.autograd.grad(dot, [sv.x, sv.y])
+
+        def worst(got, want):
+            return max(float((a.double().cpu() - b).abs().max()
+                             / b.abs().max()) for a, b in zip(got, want))
+
+        want = grads(torch.device("cpu"), torch.float64)
+        port = grads(dev, torch.float32)
+        port_conv, layers.conv2d = layers.conv2d, cudnn_conv2d
+        try:
+            cudnn, _ = grads(dev, torch.float32)
+        finally:
+            layers.conv2d = port_conv
+        errs = (worst(port[0], want[0]), worst(port[1], want[1]),
+                worst(cudnn, want[0]))
+        print(f"  {name}: against the CPU's f64, worst leaf's max error over "
+              f"its max: loss gradient at B={B} {errs[0]:.2e} (cuDNN's "
+              f"{errs[2]:.2e}), gradient to D_syn {errs[1]:.2e}")
+        if max(errs[:2]) > CNN_GRAD_TOL:
+            bad[name] = errs[:2]
+    if bad:
+        raise AssertionError(f"CNN gradients off f32's level: {bad}")
+
+
+def phase_cnns(out_dir: str, dev) -> dict:
+    phase(f"the paper's CNNs at their published widths: "
+          f"repro_torch.launch.train.main, {CNN_ROUNDS} rounds of 3SFC+EF")
+    conv_precision(dev)
+    rounds = {}
+    for name, dataset, count in CNN_CELLS:
+        st, launched, wall = run_trainer(
+            os.path.join(out_dir, name), "threesfc", "float",
+            rounds=CNN_ROUNDS, model=name, dataset=dataset)
+        d, leaves = flat.tree_size(st.params), len(flat.tree_leaves(st.params))
+        if d != count:
+            raise AssertionError(f"{name}: {d} parameters, expected {count}")
+        want = only(fused_cosine=CNN_ROUNDS * N * (S + 1),
+                    ef_update=CNN_ROUNDS * N)
+        if launched != want:
+            raise AssertionError(f"{name} launches {launched}, expected "
+                                 f"{want}")
+        print(f"  {name} on {dataset}: d={d} in {leaves} leaves (one leaf "
+              f"table), {CNN_ROUNDS} rounds in {wall:.2f} s, launches "
+              f"{launched}")
+        # one round on the card and on the CPU, from the trained params
+        # and the first CNN_CPU_N clients' residuals
+        s0 = FLState(st.params, flat.tree_map(lambda e: e[:CNN_CPU_N], st.ef),
+                     st.round)
+        gaps = {}
+        for steps in (CNN_CHECK_S, S):
+            fl_round, strategy = cnn_round(name, dataset, CNN_CPU_N, steps)
+            batches, syn0 = cnn_inputs(dev, dataset, strategy.syn_spec,
+                                       CNN_CPU_N)
+            s_card, m_card = fl_round(s0, batches, 0, syn0=syn0)
+            s_cpu, _ = fl_round(state_to_cpu(s0), to_cpu(batches), 0,
+                                syn0=SynData(*to_cpu(list(syn0))))
+            if not (math.isfinite(float(m_card.loss))
+                    and bool(torch.isfinite(m_card.cosine).all())):
+                raise AssertionError(f"{name}: non-finite round metrics")
+            # the same round on the card from params moved by a few ulps
+            g = gen(dev, 53)
+            nudged = FLState(flat.tree_map(lambda p: p * (1 + CNN_NUDGE * (
+                torch.rand(p.shape, generator=g, device=dev) - 0.5)),
+                s0.params), s0.ef, s0.round)
+            s_nudge, _ = fl_round(nudged, batches, 0, syn0=syn0)
+            # relative L2 gaps to the card's round: the update w − w' and
+            # the EF, the CPU's then the nudged card's
+            update = to_cpu(flat.tree_sub(s0.params, s_card.params))
+            ef_card = to_cpu(s_card.ef)
+            gaps[steps] = [rel_gap(update, other) for other in (
+                flat.tree_sub(to_cpu(s0.params), s_cpu.params),
+                to_cpu(flat.tree_sub(nudged.params, s_nudge.params)))] + [
+                rel_gap(ef_card, s_cpu.ef), rel_gap(ef_card, to_cpu(
+                    s_nudge.ef))]
+        print(f"  {name}: relative gaps to the card's round, update (CPU; "
+              f"card from params x (1 + {CNN_NUDGE:g}·U(-1/2, 1/2))) and EF "
+              f"(the same): " + "; ".join(
+                  f"S={k}: {a:.2e}, {b:.2e}; EF {c:.2e}, {d:.2e}"
+                  for k, (a, b, c, d) in gaps.items()))
+        cpu_u, nudge_u, cpu_e, nudge_e = gaps[CNN_CHECK_S]
+        bounds = [max(CNN_ROUND_FLOOR, CNN_ROUND_FACTOR * b)
+                  for b in (nudge_u, nudge_e)]
+        if cpu_u > bounds[0] or cpu_e > bounds[1]:
+            raise AssertionError(
+                f"{name}: card vs CPU round at S={CNN_CHECK_S} off by "
+                f"{cpu_u:.2e} (update), {cpu_e:.2e} (EF), over "
+                f"{bounds[0]:.2e}, {bounds[1]:.2e}")
+        rounds[name] = (st, dataset)
+    return rounds
+
+
+# ---------------------------------------------------------------------------
 # phase 7: times
 # ---------------------------------------------------------------------------
 
@@ -1488,15 +1860,22 @@ def b3_time_extras(dev) -> dict:
                              "at_4Mi5": at["unpack_signs"]}}
 
 
-def tree_time_rows(dev) -> dict:
-    """B1's and B2's tree forms on the MLP's 6 leaves: the leaf-table entry
-    in a CUDA graph and eagerly, the path's own call (``ops``) eagerly, and
-    the old route rebuilt from the same kernel (``torch.cat`` of each
-    operand, then the one-segment call), the two timed in turns in graphs
-    (old, new, new, old). The bound counts the tree's bytes once (no
-    single PyTorch call takes a list of leaves: no library time)."""
-    g = gen(dev, 23)
-    a, b = mlp_tree(g), mlp_tree(g)
+def model_tree(g: torch.Generator, name: str, dataset: str) -> dict:
+    """N(0, 1) leaves in the shapes of ``name``'s params on ``dataset``."""
+    params = make_paper_model(name, DATASETS[dataset]).init(g)
+    return flat.tree_map(
+        lambda p: torch.randn(p.shape, generator=g, device=p.device), params)
+
+
+def tree_time_rows(a: dict, b: dict) -> dict:
+    """B1's and B2's tree forms on the trees ``a`` and ``b`` (the MLP's 6
+    leaves, RegNet's 32): the leaf-table entry in a CUDA graph and eagerly,
+    the path's own call (``ops``) eagerly, and the old route rebuilt from
+    the same kernel (``torch.cat`` of each operand, then the one-segment
+    call), the two timed in turns in graphs (old, new, new, old). The bound
+    counts the tree's bytes once (no single PyTorch call takes a list of
+    leaves: no library time)."""
+    dev = flat.tree_leaves(a)[0].device
     la = [t.reshape(-1) for t in flat.tree_leaves(a)]
     lb = [t.reshape(-1) for t in flat.tree_leaves(b)]
     d = sum(t.numel() for t in la)
@@ -1712,11 +2091,15 @@ def phase_times(dev, launched, errs, rounds):
                      "bound_by": b_by, "library_ms": library_ms,
                      "call_ms": eager_ms,
                      "launches_per_round": per_round})
-    trees = tree_time_rows(dev)
+    g = gen(dev, 23)
+    trees = tree_time_rows(mlp_tree(g), mlp_tree(g))
+    regnet = tree_time_rows(model_tree(g, "regnet", "cifar100"),
+                            model_tree(g, "regnet", "cifar100"))
     b3 = b3_time_extras(dev)
     for row in rows:
         if row["name"] in trees:
             row["tree_mlp"] = trees[row["name"]]
+            row["tree_regnet"] = regnet[row["name"]]
         row.update(b3.get(row["name"], {}))
     rows.append(b4_time_row(dev, launched["ssd_chunk"], errs["ssd_chunk"]))
     rows += b56_time_rows(dev, launched, errs)
@@ -1773,6 +2156,19 @@ def main() -> int:
     err_b5 = phase_b56(dev)
     front_launched = phase_compressors(state, batches, dev)
     fs_round, fs_state = phase_accounted(state, batches, syn0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
+        fault_round, fault_state = phase_faults(out_dir, state, batches,
+                                                syn0)
+        cnn_states = phase_cnns(out_dir, dev)
+    cnn_profiles = []
+    for name in ("convnet", "regnet"):
+        cnn_state, dataset = cnn_states[name]
+        one_round, strategy = cnn_round(name, dataset, N)
+        cnn_batches, cnn_syn0 = cnn_inputs(dev, dataset, strategy.syn_spec, N)
+        cnn_profiles.append((
+            f"{name} 3SFC round on {dataset} (S={S}, N={N}, K={K}, B={B})",
+            functools.partial(one_round, cnn_state, cnn_batches, 0,
+                              syn0=cnn_syn0)))
     launched = {**launched, "pack_signs": codec_launched["pack_signs"],
                 "unpack_signs": codec_launched["unpack_signs"],
                 "ssd_chunk": serve_launched["ssd_chunk"],
@@ -1790,6 +2186,10 @@ def main() -> int:
          f"B={B})", lambda: sign_round_by_frame(sign_state, batches, 0)),
         (f"FedSynth round (N={N}, K={K}, B={B}, 10 opt x 5 unroll steps)",
          lambda: fs_round(fs_state, batches, 0, syn0=syn0)),
+        (f"faulted main-path round ({FAULT_KNOBS}, round "
+         f"{fault_state.round})",
+         lambda: fault_round(fault_state, batches, 0, syn0=syn0)),
+        *cnn_profiles,
     ])
 
     print(card)

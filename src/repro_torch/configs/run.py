@@ -1,11 +1,11 @@
 """RunConfig: the knobs of one federated run, validated at construction.
 
 The fields the port runs: the FL schedule (``fl``), the client fan-out,
-the wire mode and its dtype policy, fused decode, microbatching and the
-fault and transport knobs at their defaults. The checks copy the JAX
-package's ``configs/run.py`` for these fields; a knob whose path is not
-ported yet (``client_parallel='shard_map'``, ``transport='socket'``, any
-fault) raises ``NotImplementedError``.
+the wire mode and its dtype policy, fused decode, microbatching, the
+fault model (``repro_torch.fl.faults``) and the transport at its default.
+The checks copy the JAX package's ``configs/run.py`` for these fields; a
+knob whose path is not ported yet (``client_parallel='shard_map'``,
+``transport='socket'``) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -39,11 +39,19 @@ class RunConfig:
     fused_decode: bool = False
     # gradient microbatching depth inside each local step
     num_micro: int = 1
-    # -- fault model: every knob at its zero-fault default ----------------
+    # -- fault model (repro_torch.fl.faults) -------------------------------
+    # fraction of clients scheduled each round; 1.0 = everyone (no faults)
     participation_rate: float = 1.0
+    # probability a participating client's payload is lost mid-round
     drop_rate: float = 0.0
+    # probability a delivered payload is a straggler (arrives 1..staleness_max
+    # rounds late); requires staleness_max >= 1
     straggler_rate: float = 0.0
+    # staleness bound k: round-t payloads may arrive up to round t+k, held
+    # in the FLState ring buffer with weight 1/(1+delay). 0 = buffer off.
     staleness_max: int = 0
+    # seed of the fault stream: schedules are a pure function of
+    # (fault_seed, round)
     fault_seed: int = 0
     # -- transport ---------------------------------------------------------
     transport: str = "inproc"
@@ -89,14 +97,16 @@ class RunConfig:
                 f"client_parallel='shard_map' {_NOT_PORTED}")
         if self.transport == "socket":
             raise NotImplementedError(f"transport='socket' {_NOT_PORTED}")
-        if self.has_faults:
-            raise NotImplementedError(f"the fault model {_NOT_PORTED}")
 
     @property
     def has_faults(self) -> bool:
-        """True when any fault knob is non-default."""
+        """True when any fault knob is non-default: the round builder then
+        runs the masked fault pipeline."""
         return (self.participation_rate < 1.0 or self.drop_rate > 0.0
                 or self.straggler_rate > 0.0 or self.staleness_max > 0)
+
+    def replace(self, **kw) -> "RunConfig":
+        return dataclasses.replace(self, **kw)
 
     def to_json(self) -> Dict[str, Any]:
         """JSON-serializable dict of every field."""
@@ -117,4 +127,9 @@ class RunConfig:
         )
         return cls(fl=fl,
                    wire=getattr(args, "wire", "float"),
-                   wire_policy=getattr(args, "wire_policy", "fp32"))
+                   wire_policy=getattr(args, "wire_policy", "fp32"),
+                   participation_rate=getattr(args, "participation_rate", 1.0),
+                   drop_rate=getattr(args, "drop_rate", 0.0),
+                   straggler_rate=getattr(args, "straggler_rate", 0.0),
+                   staleness_max=getattr(args, "staleness_max", 0),
+                   fault_seed=getattr(args, "fault_seed", 0))

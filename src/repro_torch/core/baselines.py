@@ -16,7 +16,9 @@ These float counts are conventions, not measurements; the real wire format
 lives in ``repro_torch.comm``, and ``compression_rate_bytes`` is the
 bytes-based sibling of Eq. 1.
 
-Top-k here is exact (``torch.topk``), as the reference's ``lax.top_k``;
+Top-k here is exact, and takes ``lax.top_k``'s elements in its order
+(a stable descending sort of the magnitudes: a tie goes to the lower
+index);
 the sampled-threshold select of kernel B6 is a separate front end
 (``kernels.ops.topk_threshold`` + ``topk_mask``) that no compressor calls,
 as in the reference. Signs are taken as the reference takes them, with
@@ -64,11 +66,18 @@ def identity_compress(vec: torch.Tensor) -> Tuple[Payload, torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 
+def top_magnitudes(vec: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest |vec|, as ``lax.top_k`` gives them: in
+    descending order of magnitude, a tie to the lower index, so a tie at
+    the k-th place keeps the element the reference keeps."""
+    return torch.sort(torch.abs(vec), descending=True,
+                      stable=True).indices[:k]
+
+
 def topk_compress(vec: torch.Tensor, k: int) -> Tuple[Payload, torch.Tensor]:
-    """Keep the k largest-magnitude coordinates (DGC sparsifier); tied
-    magnitudes may be taken in another order than ``lax.top_k``'s."""
+    """Keep the k largest-magnitude coordinates (DGC sparsifier)."""
     k = _clamp_k(k, vec.numel())
-    idx = torch.topk(torch.abs(vec), k).indices
+    idx = top_magnitudes(vec, k)
     vals = vec[idx]
     return Payload((vals, idx), 2.0 * k), _scatter(vec, idx, vals)
 
@@ -114,7 +123,7 @@ def signsgd_compress(vec: torch.Tensor) -> Tuple[Payload, torch.Tensor]:
 
 def stc_compress(vec: torch.Tensor, k: int) -> Tuple[Payload, torch.Tensor]:
     k = _clamp_k(k, vec.numel())
-    idx = torch.topk(torch.abs(vec), k).indices
+    idx = top_magnitudes(vec, k)
     vals = vec[idx]
     mu = torch.mean(torch.abs(vals))
     signs = ftz.sign(vals)

@@ -302,8 +302,8 @@ class TopKStrategy(CompressionStrategy):
                          for l in tree_leaves(params)))
 
     def client_encode(self, key, u, params):
-        # per leaf (vals, idx), in descending order of |u| (tied magnitudes
-        # may come in another order than lax.top_k's)
+        # per leaf (vals, idx), in lax.top_k's order: descending |u|, a tie
+        # to the lower index
         recon, wire = _per_leaf(lambda v: baselines.topk_compress(
             v, leaf_k(v.numel(), self.cfg.keep_ratio)), u)
         return TreeCompressed(recon, _scalar(self.payload_floats(params), u),

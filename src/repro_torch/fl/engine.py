@@ -19,11 +19,15 @@ functions of the engine seed and the *absolute* round counter::
     round key  = fold_in(round_seed, r)  (client i: fold_in(key, i))
 
 so how rounds are grouped into blocks never changes the trajectory: blocks
-[3] and [2, 1] give bitwise the same state (eval-cadence invariance).
+[3] and [2, 1] give bitwise the same state (eval-cadence invariance). The
+round's fault schedule is a pure function of ``(fault_seed, absolute
+round)`` too (``repro_torch.fl.faults``), so the same holds under faults.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
+import dataclasses
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -87,6 +91,27 @@ def vision_batcher(train_x: np.ndarray, train_y: np.ndarray,
     return batch_fn
 
 
+@dataclasses.dataclass
+class EngineStats:
+    """Dispatch and sync accounting of a ``RoundEngine``.
+
+    ``rounds`` and ``host_syncs`` mean what they mean in the JAX package:
+    one sync per ``run_block`` (its metrics' one fetch to the host), two
+    per round in ``run_loop``. ``dispatches`` counts calls of the round
+    function: the port makes one per round, where the reference's scanned
+    block is one dispatch for all its rounds.
+    """
+
+    dispatches: int = 0              # round-function calls
+    host_syncs: int = 0              # blocking device->host reads
+    rounds: int = 0
+
+    def per_round(self) -> Dict[str, float]:
+        r = max(self.rounds, 1)
+        return {"dispatches_per_round": self.dispatches / r,
+                "host_syncs_per_round": self.host_syncs / r}
+
+
 class RunHistory(NamedTuple):
     metrics: RoundMetrics            # stacked over all rounds (host arrays)
     evals: List[Tuple[int, Any]]     # (round, eval_fn result) per eval point
@@ -114,16 +139,20 @@ class RoundEngine:
         self._round_seed = fold_in(seed, _ROUND_FOLD)
         self._round_fn = round_fn
         self._batch_fn = batch_fn
+        self.stats = EngineStats()
 
     def init_state(self, params: PyTree, num_clients: int,
-                   strategy=None) -> FLState:
+                   strategy=None, *, staleness_max: int = 0) -> FLState:
         """``fl_init`` on a copy of ``params``, so the caller's tensors are
-        never the state's."""
-        return fl_init(tree_map(torch.clone, params), num_clients, strategy)
+        never the state's; pass ``staleness_max=run.staleness_max`` when
+        the round was built with staleness."""
+        return fl_init(tree_map(torch.clone, params), num_clients, strategy,
+                       staleness_max=staleness_max)
 
     def _round(self, state: FLState) -> Tuple[FLState, RoundMetrics]:
         batches = self._batch_fn(self._data_seed, state.round)
         key = fold_in(self._round_seed, state.round)
+        self.stats.dispatches += 1
         return self._round_fn(state, batches, key)
 
     def run_block(self, state: FLState,
@@ -134,6 +163,8 @@ class RoundEngine:
         for _ in range(length):
             state, m = self._round(state)
             ms.append(m)
+        self.stats.host_syncs += 1
+        self.stats.rounds += length
         return state, _to_host(ms)
 
     def run(self, state: FLState, num_rounds: int, *, eval_every: int = 0,
@@ -176,5 +207,7 @@ class RoundEngine:
             state, m = self._round(state)
             float(m.loss)
             float(torch.mean(m.cosine))
+            self.stats.host_syncs += 2
+            self.stats.rounds += 1
             out.append(m)
         return state, _to_host(out)

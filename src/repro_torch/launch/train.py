@@ -6,12 +6,18 @@ device, the round is built by ``repro_torch.fl.round.build_fl_round`` over
 the compressor's registered strategy, and the flags fold into one
 validated ``RunConfig`` (logged as ``run_config.json`` next to
 ``metrics.jsonl``). ``--wire codec`` runs the round on serialized uint8
-frames (``repro_torch.comm``), one per client per round.
+frames (``repro_torch.comm``), one per client per round. The fault flags
+(``--participation-rate``, ``--drop-rate``, ``--straggler-rate``,
+``--staleness-max``, ``--fault-seed``) run the in-round fault model of
+``repro_torch.fl.faults``; ``--model`` takes each of the paper's five
+vision models.
 
     PYTHONPATH=src python -m repro_torch.launch.train --model mlp \
         --dataset mnist --compressor threesfc --rounds 200 --clients 10
     PYTHONPATH=src python -m repro_torch.launch.train --compressor signsgd \
         --wire codec
+    PYTHONPATH=src python -m repro_torch.launch.train --model convnet \
+        --dataset cifar10 --drop-rate 0.3 --participation-rate 0.8
 
 It runs on the CUDA device unless ``--device cpu`` is given, and raises
 when no CUDA device is available and the CPU was not asked for.
@@ -94,7 +100,8 @@ def train_vision(args) -> FLState:
         build_fl_round(model.loss, strategy, run, codec=codec),
         vision_batcher(train.x, train.y, pools, args.local_steps, args.batch),
         seed=args.seed)
-    state = engine.init_state(params, args.clients, strategy)
+    state = engine.init_state(params, args.clients, strategy,
+                              staleness_max=run.staleness_max)
     test_x = torch.as_tensor(test.x, device=device)
     test_y = torch.as_tensor(test.y, device=device)
 
@@ -143,6 +150,26 @@ def main(argv=None) -> FLState:
                     help="what crosses the client/server boundary: float "
                          "trees (accounted bytes) or the repro_torch.comm "
                          "codec's framed uint8 buffers (measured bytes)")
+    # fault model (repro_torch.fl.faults): all default to the zero-fault
+    # config, which runs the exact unfaulted round
+    ap.add_argument("--participation-rate", type=float, default=1.0,
+                    dest="participation_rate",
+                    help="fraction of clients scheduled each round")
+    ap.add_argument("--drop-rate", type=float, default=0.0, dest="drop_rate",
+                    help="probability a participating client's payload is "
+                         "lost mid-round (EF banks the whole update)")
+    ap.add_argument("--straggler-rate", type=float, default=0.0,
+                    dest="straggler_rate",
+                    help="probability a delivered payload arrives 1..k "
+                         "rounds late (requires --staleness-max >= 1)")
+    ap.add_argument("--staleness-max", type=int, default=0,
+                    dest="staleness_max",
+                    help="staleness bound k: late payloads are applied at "
+                         "t+delay with weight 1/(1+delay); 0 disables the "
+                         "ring buffer")
+    ap.add_argument("--fault-seed", type=int, default=0, dest="fault_seed",
+                    help="seed of the fault stream (schedules are a pure "
+                         "function of (fault_seed, round))")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; the run raises when cuda is "
                          "asked for and no CUDA device is available")

@@ -1,12 +1,13 @@
-"""Shared primitive layers of the LM families: RMSNorm, embedding, the
-logit projections and the depthwise causal conv.
+"""Shared primitive layers: RMSNorm, embedding, the logit projections, the
+depthwise causal conv of the LM families, and the paper CNNs' conv2d.
 
 Casts follow the JAX package's ``models/layers.py``: norm statistics and
 logits in f32, the conv in the activation dtype (its decode step in f32).
-The FFN and conv2d wait for the attention families (ROADMAP.md).
+The FFN waits for the attention families (ROADMAP.md).
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 import torch
@@ -95,3 +96,63 @@ def causal_conv1d_step(p: Dict, x_t: torch.Tensor, buf: torch.Tensor
                      p["conv_w"].to(torch.float32))
     y = (y + p["conv_b"].to(torch.float32)).to(x_t.dtype)
     return y, full[:, 1:, :]
+
+
+# ---------------------------------------------------------------------------
+# Conv2d (paper CNN models): HWIO weights, NHWC activations
+# ---------------------------------------------------------------------------
+
+
+def conv2d_init(gen: torch.Generator, cin: int, cout: int, k: int,
+                dtype=torch.float32) -> Dict:
+    w = P_.dense_init(gen, cin * k * k, (k, k, cin, cout), dtype)
+    return {"w": w, "b": torch.zeros((cout,), dtype=dtype, device=w.device)}
+
+
+def same_padding(n: int, k: int, stride: int) -> Tuple[int, int]:
+    """XLA's SAME padding of one spatial dim: ``(lo, hi)`` with ``lo =
+    total // 2``, ``total = max((ceil(n/s) − 1)·s + k − n, 0)``. At stride 2
+    it can be uneven, (0, 1) for k = 3 on an even size, which no symmetric
+    ``padding=`` of ``F.conv2d`` gives."""
+    total = max((math.ceil(n / stride) - 1) * stride + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d(p: Dict, x: torch.Tensor, stride: int = 1,
+           padding: str = "SAME") -> torch.Tensor:
+    """``lax.conv_general_dilated`` with dimension numbers (NHWC, HWIO,
+    NHWC) and SAME or VALID padding, as one matrix product: the input's
+    patches (``F.unfold``; a 1x1 conv's are the strided pixels) times the
+    weights viewed as (kh·kw·cin, cout), f32 products summed in f32 (TF32
+    off), the output NHWC as it comes. Its backward and double backward
+    are products and ``F.fold``. cuDNN is not used: with TF32 off its
+    backward for a 64->64 3x3 conv at 8x8 still misses f32 by 1e-3
+    (``chip_smoke.py`` phase 15)."""
+    w = p["w"].to(x.dtype)
+    k_h, k_w, cin, cout = w.shape
+    if padding not in ("SAME", "VALID"):
+        raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
+    if k_h == k_w == 1:                     # SAME pads nothing at k = 1
+        cols = x[:, ::stride, ::stride, :]
+        return cols @ w.reshape(cin, cout) + p["b"].to(x.dtype)
+    xc = x.permute(0, 3, 1, 2)
+    if padding == "SAME":
+        (ht, hb), (wl, wr) = (same_padding(x.shape[1], k_h, stride),
+                              same_padding(x.shape[2], k_w, stride))
+        if ht or hb or wl or wr:
+            xc = F.pad(xc, (wl, wr, ht, hb))
+    n, _, h, wd = xc.shape
+    h_out, w_out = (h - k_h) // stride + 1, (wd - k_w) // stride + 1
+    # (n, cin·kh·kw, L) with rows (c, i, j); the weights to match
+    cols = F.unfold(xc, (k_h, k_w), stride=stride)
+    wm = w.permute(2, 0, 1, 3).reshape(cin * k_h * k_w, cout)
+    y = (cols.transpose(1, 2) @ wm).reshape(n, h_out, w_out, cout)
+    return y + p["b"].to(x.dtype)
+
+
+def max_pool2x2(x: torch.Tensor) -> torch.Tensor:
+    """2×2 max pool at stride 2, VALID, over NHWC: the reference's
+    ``reduce_window(max, (1, 2, 2, 1), (1, 2, 2, 1), 'VALID')``. A tie's
+    gradient goes to the window's first maximum in row-major order, the
+    element the reference's gradient picks."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)

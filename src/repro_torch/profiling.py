@@ -86,20 +86,25 @@ def round_profile(one_round: Callable[[], object],
                              ProfilerActivity.CUDA]) as prof:
         one_round()
         torch.cuda.synchronize()
-    # kernel rows only (device_type CUDA): the aten:: rows repeat the time
-    # of the kernels they launch
-    dev_us, launches, per_kernel, top = 0.0, 0, {}, []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.device_time_total <= 0:
+    # the device's records only (kernels, copies, fills), summed by name
+    # straight from the trace's events: ``key_averages`` would first build a
+    # Python object for every host op too (seconds for a CNN round)
+    by_name: Dict[str, list] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.duration_ns() <= 0:
             continue
-        t = e.device_time_total
-        dev_us += t
-        launches += e.count
-        top.append((t, e.key, e.count))
-        for name in kernel_names:
-            if name in e.key:
-                per_kernel[name] = (t, e.count)
-    top.sort(reverse=True)
+        tc = by_name.setdefault(e.name(), [0.0, 0])
+        tc[0] += e.duration_ns() / 1e3
+        tc[1] += 1
+    dev_us = sum(t for t, _ in by_name.values())
+    launches = sum(c for _, c in by_name.values())
+    top = sorted(((t, key, c) for key, (t, c) in by_name.items()),
+                 reverse=True)
+    per_kernel = {}
+    for name in kernel_names:
+        for key, (t, c) in by_name.items():
+            if name in key:
+                per_kernel[name] = (t, c)
     return {"round_wall_ms": statistics.median(walls), "walls_ms": walls,
             "round_device_ms": dev_us / 1e3 if dev_us else None,
             "device_launches": launches, "per_kernel_us": per_kernel,

@@ -519,3 +519,19 @@ def test_tree_compressor_wire_step_delegates():
     assert torch.equal(buf, want) and buf.numel() == codec.nbytes
     for k in params:
         assert torch.equal(e[k], e_want[k])
+
+
+@pytest.mark.parametrize("k", [1, 7, 500, 3333])
+def test_topk_ties_match_reference(k):
+    """On magnitudes with many ties, top-k and STC keep the reference's
+    elements in its order: descending |v|, a tie to the lower index."""
+    v = np.random.default_rng(k).integers(-20, 21, 10_000).astype(np.float32)
+    for port, ref in ((baselines.topk_compress, jbaselines.topk_compress),
+                      (baselines.stc_compress, jbaselines.stc_compress)):
+        got, recon = port(torch.from_numpy(v), k)
+        want, jrecon = ref(jnp.asarray(v), k)
+        np.testing.assert_array_equal(got.data[1].numpy(),
+                                      np.asarray(want.data[1]))
+        # STC's mu is a mean summed in another order
+        np.testing.assert_allclose(recon.numpy(), np.asarray(jrecon),
+                                   rtol=1e-6)

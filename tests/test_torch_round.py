@@ -329,18 +329,32 @@ def test_engine_batches_are_a_function_of_seed_round_client():
 
 def test_runconfig_validation():
     fl = FLConfig()
-    for kw in ({"client_parallel": "shard_map"},
-               {"transport": "socket"}, {"drop_rate": 0.1},
-               {"participation_rate": 0.5}):
+    for kw in ({"client_parallel": "shard_map"}, {"transport": "socket"}):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             RunConfig(fl=fl, **kw)
+    # the fault knobs are ported: accepted, and they switch faults on
+    for kw in ({"drop_rate": 0.1}, {"participation_rate": 0.5},
+               {"straggler_rate": 0.5, "staleness_max": 2},
+               {"staleness_max": 1}):
+        run = RunConfig(fl=fl, **kw)
+        assert run.has_faults and run.to_json()[next(iter(kw))] == kw[
+            next(iter(kw))]
+    assert not RunConfig(fl=fl, fault_seed=3).has_faults
+    assert RunConfig(fl=fl).replace(drop_rate=0.2).drop_rate == 0.2
     codec = RunConfig(fl=fl, wire="codec", wire_policy="fp16").to_json()
     assert codec["wire"] == "codec" and codec["wire_policy"] == "fp16"
     for kw in ({"client_parallel": "pmap"}, {"wire": "bytes"},
                {"num_micro": 0}, {"straggler_rate": 0.5},
-               {"fused_decode": True, "staleness_max": 1}):
+               {"fused_decode": True, "staleness_max": 1},
+               # the reference's fault validations
+               {"participation_rate": 0.0}, {"participation_rate": 1.5},
+               {"drop_rate": 1.0}, {"drop_rate": -0.1},
+               {"straggler_rate": 1.5, "staleness_max": 1},
+               {"staleness_max": -1}):
         with pytest.raises(ValueError):
             RunConfig(fl=fl, **kw)
+        with pytest.raises(ValueError):
+            JRunConfig(fl=JFLConfig(), **kw)
     assert RunConfig(fl=fl).to_json()["fl"]["num_clients"] == fl.num_clients
 
 

@@ -266,3 +266,53 @@ def test_strategy_registry_and_unported_paths(world):
         from repro_torch.fl.round import build_fl_round
         build_fl_round(world["tmodel"].loss, ident,
                        RunConfig(fl=FLConfig(), fused_decode=True))
+
+
+def test_recon_is_colinear_with_syn_grad(world):
+    """recon = s·∇F lies on the syn-grad ray: |cos(recon, ∇F)| == 1."""
+    syn0 = threesfc.init_syn(torch.Generator().manual_seed(5),
+                             world["tspec"])
+    res = threesfc.encode(world["tmodel"].syn_loss, world["tparams"],
+                          world["ttarget"], syn0, steps=1, lr=0.1)
+    gw = threesfc.decode(world["tmodel"].syn_loss, world["tparams"],
+                         res.syn, torch.tensor(1.0))
+    assert abs(abs(float(flat.tree_cosine(res.recon, gw))) - 1.0) < 1e-5
+
+
+def test_encode_aux_matches_fresh_objective(world):
+    """The (objective, gw, stats) the encoder returns equal a fresh
+    ``_objective`` evaluation at the returned D_syn."""
+    syn0 = threesfc.init_syn(torch.Generator().manual_seed(8),
+                             world["tspec"])
+    res = threesfc.encode(world["tmodel"].syn_loss, world["tparams"],
+                          world["ttarget"], syn0, steps=2, lr=0.1)
+    w = flat.tree_map(lambda p: p.detach().requires_grad_(True),
+                      world["tparams"])
+    val, (gw, st) = threesfc._objective(world["tmodel"].syn_loss, w,
+                                        res.syn, world["ttarget"], 0.0)
+    np.testing.assert_allclose(float(res.objective), float(val), rtol=1e-6)
+    np.testing.assert_allclose(res.stats.numpy(), st.detach().numpy(),
+                               rtol=1e-5)
+    for a, b in zip(flat.tree_leaves(res.gw), flat.tree_leaves(gw)):
+        np.testing.assert_allclose(a.numpy(), b.detach().numpy(), rtol=1e-5,
+                                   atol=1e-8)
+
+
+def test_low_rank_labels():
+    """``init_syn`` with a label rank draws the factors u (lead, r) and
+    v (r, C); the dense labels are u·v; the budget counts both factors, as
+    the reference's spec does."""
+    spec = threesfc.SynSpec(x_shape=(1, 8, 32), num_classes=1000,
+                            label_rank=4, label_lead=(1, 8))
+    syn = threesfc.init_syn(torch.Generator().manual_seed(0), spec)
+    assert tuple(syn.y.shape) == (1, 8, 4)
+    assert tuple(syn.y_rank.shape) == (4, 1000)
+    assert tuple(syn.labels().shape) == (1, 8, 1000)
+    assert spec.floats == 1 * 8 * 32 + 1 * 8 * 4 + 4 * 1000
+    assert syn.floats == spec.floats
+    # a 4-term f32 sum of products of 0.1-scale draws: a few f32 roundings
+    # of 1e-2 terms, so atol 1e-8 for sums that cancel to near zero
+    np.testing.assert_allclose(
+        syn.labels().numpy(),
+        np.einsum("abr,rc->abc", syn.y.numpy(), syn.y_rank.numpy()),
+        rtol=1e-6, atol=1e-8)
