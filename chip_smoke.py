@@ -123,8 +123,30 @@ Phases, in order; any failure exits non-zero:
              that a nudge of the params by a few ulps opens on the card,
              and at the trainer's S reported (the CNN rounds are
              ill-conditioned; nothing bitwise is claimed for them).
+16. mamba2 training — the published mamba2-370m (48 layers, d_model 1,024,
+             vocab 50,280, bf16 activations, f32 params: d = 368,338,432)
+             through ``repro_torch.launch.train.train_lm`` under the
+             reference's make_train_entry settings (K=1, lr 0.01, 3SFC with
+             16 synthetic positions and rank-8 labels, one step), cut to
+             N=4 clients of 2 sequences of 4,096 tokens (2 microbatches)
+             and 2 rounds: exactly 16 B1 and 8 B2 launches and no other,
+             the payload of the reference's budget (418,753 floats, 880x)
+             and the peak device memory; B1 on that tree against f64 sums,
+             and B2 bitwise its flat form; one signSGD codec round (N=4, EF
+             on): 4 B3a, 1 B3b, 4 B1, the frames decoded as one batch
+             bitwise those decoded frame by frame; ``LM.loss`` at full
+             width in float32 on 2 x 2,048 tokens through B4 and through
+             ``ssd_scan`` (48 B4 launches per loss, 96 per value and grad:
+             the period remat runs each forward again), within
+             LM_ROUTE_LOSS_RTOL and LM_ROUTE_GRAD_RTOL, and the 3SFC
+             encoder through the B4 route raising (C3); one round at full
+             width cut to 2 layers, float32, N=2, S=256, on the card and
+             on the CPU within the main path's tolerances, with the gap a
+             nudge of the params by a few ulps opens beside.
 
-The phases run in the order 1-6, 8-15, 7, so that the times can report each
+Phase 7 adds the full-width mamba2 round's profile and B1, B2 (with
+``torch.addcmul`` beside), B3a and B3b at mamba2's d. The phases run in
+the order 1-6, 8-16, 7, so that the times can report each
 kernel's launches on its path. The last lines are one JSON object with every
 kernel's numbers, the list of kernels, and ``{"ok": true, "device": {...}}``.
 """
@@ -135,7 +157,6 @@ import itertools
 import json
 import math
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -144,6 +165,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.comm import Codec, frame  # noqa: E402
@@ -154,11 +176,15 @@ from repro_torch.core import baselines, flat  # noqa: E402
 from repro_torch.core import error_feedback as ef  # noqa: E402
 from repro_torch.core.compressor import make_compressor  # noqa: E402
 from repro_torch.core.strategy import leaf_k, make_strategy  # noqa: E402
+from repro_torch.core import threesfc  # noqa: E402
 from repro_torch.core.threesfc import SynData, init_syn  # noqa: E402
+from repro_torch.core.tree import tree_flatten, tree_unflatten  # noqa: E402
+from repro_torch.data.synthetic import make_token_dataset  # noqa: E402
 from repro_torch.fl.budget import matched_compressors  # noqa: E402
 from repro_torch.fl.client import local_train  # noqa: E402
 from repro_torch.fl import faults  # noqa: E402
-from repro_torch.fl.round import FLState, build_fl_round  # noqa: E402
+from repro_torch.fl.engine import token_batcher  # noqa: E402
+from repro_torch.fl.round import FLState, build_fl_round, fl_init  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import bitpack as bp_mod  # noqa: E402
 from repro_torch.kernels import ef_update as ef_mod  # noqa: E402
@@ -170,9 +196,11 @@ from repro_torch.kernels import topk_mask as tm_mod  # noqa: E402
 from repro_torch.kernels.ftz import FLT_MIN, flush_subnormal  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
-from repro_torch.models.build import build_model, vision_syn_spec  # noqa: E402
+from repro_torch.models.build import (build_model, syn_loss_fn,  # noqa: E402
+                                      syn_spec_for, vision_syn_spec)
 from repro_torch.models.cnn import (DATASETS, MNIST_SPEC,  # noqa: E402
                                     make_mlp, make_paper_model)
+from repro_torch.models.transformer import LM  # noqa: E402
 from repro_torch.profiling import (call_ms, graph_ms,  # noqa: E402
                                   round_profile)
 
@@ -244,15 +272,39 @@ CNN_CPU_N = 2
 # level (conv_precision), and the card-vs-CPU round with no encoder step
 # (S = 0: local training, one objective, Eq. 8, B1, B2, the aggregate):
 # its update's and EF's relative L2 gaps to the CPU's within
-# CNN_ROUND_FACTOR times the gaps the nudge opens on the card, and never
-# less than CNN_ROUND_FLOOR. At the trainer's S the gaps are reported.
+# ROUND_FACTOR times the gaps the nudge opens on the card, and never
+# less than ROUND_FLOOR. At the trainer's S the gaps are reported.
 CNN_CHECK_S = 0
 CNN_NUDGE = 1e-6
-CNN_ROUND_FACTOR, CNN_ROUND_FLOOR = 10.0, 1e-4
+ROUND_FACTOR, ROUND_FLOOR = 10.0, 1e-4
 # a CNN's loss gradient on the card against the CPU's in f64: the worst
 # leaf's largest error over its largest element, at f32's level (the CPU's
 # own f32 gradients reach 3e-6)
 CNN_GRAD_TOL = 1e-5
+# phase 16: mamba2-370m at the published widths under the FL settings of
+# the reference's make_train_entry (K = 1, local lr 0.01, 3SFC with 16
+# synthetic positions and rank-8 labels, one step), cut to N = 4 clients of
+# 2 sequences of 4,096 tokens (the microbatch rule: 2 slices) and 2 rounds
+LM_N, LM_BATCH, LM_SEQ, LM_ROUNDS, LM_LR = 4, 2, 4096, 2, 0.01
+LM_NUM_SEQS = 16
+LM_COMP = CompressorConfig(kind="threesfc", syn_seq=16, soft_label_rank=8)
+LM_D = 368_338_432
+# the mirror of tests/test_pallas_model_path.py's loss and grad at full
+# width, float32: the B4 route against the ssd_scan route, the loss
+# within a relative LM_ROUTE_LOSS_RTOL and each gradient leaf within a
+# relative L2 gap of LM_ROUTE_GRAD_RTOL (48 layers of B4's 3xTF32 products)
+LM_ROUTE_BATCH, LM_ROUTE_SEQ = 2, 2048
+LM_ROUTE_LOSS_RTOL, LM_ROUTE_GRAD_RTOL = 1e-4, 1e-3
+# one round at full width cut to 2 layers, f32, on the card and the CPU:
+# params and EF within PARAM_TOL and EF_TOL, and the update's relative L2
+# gap to the card's within ROUND_FACTOR times the gap that params moved by
+# a relative LM_NUDGE·U(-1/2, 1/2) open on the card (never under
+# ROUND_FLOOR): the encoder's step makes the update ill-conditioned, as
+# the CNNs'
+LM_CPU_LAYERS, LM_CPU_N, LM_CPU_BATCH, LM_CPU_SEQ = 2, 2, 2, 256
+LM_NUDGE = 1e-6
+# B1-B3 at mamba2's d in CUDA graphs: calls per graph and replays
+LM_TIME_REPS, LM_TIME_REPLAYS = 10, 11
 # vectors of 4 Mi + 5 elements the B5/B6 timing rotates over: 6 x 16.8 MB
 # of inputs, twice the H100's 50 MB L2
 L2_ROTATE = 6
@@ -1739,7 +1791,7 @@ def phase_cnns(out_dir: str, dev) -> dict:
                   f"S={k}: {a:.2e}, {b:.2e}; EF {c:.2e}, {d:.2e}"
                   for k, (a, b, c, d) in gaps.items()))
         cpu_u, nudge_u, cpu_e, nudge_e = gaps[CNN_CHECK_S]
-        bounds = [max(CNN_ROUND_FLOOR, CNN_ROUND_FACTOR * b)
+        bounds = [max(ROUND_FLOOR, ROUND_FACTOR * b)
                   for b in (nudge_u, nudge_e)]
         if cpu_u > bounds[0] or cpu_e > bounds[1]:
             raise AssertionError(
@@ -1748,6 +1800,301 @@ def phase_cnns(out_dir: str, dev) -> dict:
                 f"{bounds[0]:.2e}, {bounds[1]:.2e}")
         rounds[name] = (st, dataset)
     return rounds
+
+
+# ---------------------------------------------------------------------------
+# phase 16: mamba2-370m under federated training at full width
+# ---------------------------------------------------------------------------
+
+
+def lm_args(clients: int, batch: int, *flags: str):
+    """The trainer's flags for a mamba2-370m run of ``clients`` clients of
+    ``batch`` sequences, K = 1, local lr LM_LR, then ``flags``."""
+    return train.parse_args([
+        "--arch", "mamba2-370m", "--clients", str(clients), "--local-steps",
+        "1", "--batch", str(batch), "--lr", str(LM_LR), *flags])
+
+
+def lm_batches(dev, cfg, clients: int, batch: int, seq: int, seed: int):
+    """One round's (N, 1, B, S) token batch from a planted-bigram set."""
+    data = make_token_dataset(gen(torch.device("cpu"), seed),
+                              clients * batch, seq, cfg.vocab_size)
+    return token_batcher(data, clients, 1, batch, device=dev)(seed, 0)
+
+
+def lm_tree(g: torch.Generator, cfg, scale: float) -> dict:
+    """N(0, scale²) leaves in the shapes of ``cfg``'s LM params."""
+    params = LM(cfg).init(g)
+    return flat.tree_map(lambda p: scale * torch.randn(
+        p.shape, generator=g, device=p.device), params)
+
+
+def check_b1_f64(label: str, a: dict, b: dict) -> float:
+    """B1's f32 triple on a tree against the triple summed in f64: within
+    B1_RTOL of (‖a‖‖b‖, ‖a‖², ‖b‖²), as against the plain version; the
+    plain version's own gap to f64 printed beside."""
+    la = [t.reshape(-1) for t in flat.tree_leaves(a)]
+    lb = [t.reshape(-1) for t in flat.tree_leaves(b)]
+    got = fc_mod.fused_cosine_leaves(la, lb).double()
+    plain = fc_mod.fused_cosine_leaves_plain(la, lb).double()
+    x64, y64 = torch.cat(la).double(), torch.cat(lb).double()
+    want = torch.stack([torch.dot(x64, y64), torch.dot(x64, x64),
+                        torch.dot(y64, y64)])
+    del x64, y64
+    scale = torch.stack([torch.sqrt(want[1] * want[2]), want[1], want[2]])
+    rel = ((got - want).abs() / scale).max()
+    rel_plain = ((plain - want).abs() / scale).max()
+    if not float(rel) <= B1_RTOL:
+        raise AssertionError(f"{label}: B1 is {float(rel):.3e} of its scale "
+                             f"from the f64 sums, over {B1_RTOL}")
+    print(f"  {label}: B1 against the f64 sums {float(rel):.3e} of "
+          f"(|a||b|, |a|², |b|²) (bound {B1_RTOL}); the plain version "
+          f"(torch.dot in f32) {float(rel_plain):.3e}")
+    return float(rel)
+
+
+def phase_lm_train(out_dir: str, dev):
+    phase(f"mamba2-370m federated training at full width: "
+          f"repro_torch.launch.train.train_lm, 3SFC+EF, N={LM_N}, K=1, "
+          f"B={LM_BATCH}, S={LM_SEQ}, {LM_ROUNDS} rounds")
+    cfg = get_config("mamba2-370m")
+    args = lm_args(LM_N, LM_BATCH, "--rounds", str(LM_ROUNDS),
+                   "--eval-every", "1", "--out", out_dir)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reset_counts()
+    state, hist = train.train_lm(args, cfg, LM_COMP, LM_SEQ, LM_NUM_SEQS)
+    torch.cuda.synchronize()
+    launched, wall = counts(), time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    want = only(fused_cosine=LM_ROUNDS * LM_N * (LM_COMP.syn_steps + 1),
+                ef_update=LM_ROUNDS * LM_N)
+    if launched != want:
+        raise AssertionError(f"mamba2 3SFC rounds: launches {launched}, "
+                             f"expected {want}")
+    d = flat.tree_size(state.params)
+    spec = syn_spec_for(cfg, LM_COMP)
+    payload = spec.floats + 1
+    m = hist.metrics
+    if d != LM_D or any(float(p) != payload for p in m.payload_floats):
+        raise AssertionError(f"d={d} (expected {LM_D}), payload "
+                             f"{m.payload_floats} (expected {payload})")
+    if not (np.isfinite(m.loss).all() and np.isfinite(m.cosine).all()):
+        raise AssertionError(f"non-finite round metrics: {m}")
+    print(f"  d={d}, payload {payload:.0f} floats ({spec.x_shape} inputs, "
+          f"rank-{LM_COMP.soft_label_rank} labels, s): {d / payload:.1f}x; "
+          f"num_micro {train.num_micro_for(LM_BATCH, LM_SEQ)}; losses "
+          f"{m.loss.tolist()}, mean cosines "
+          f"{m.cosine.mean(axis=1).tolist()}; {wall:.2f} s for "
+          f"{LM_ROUNDS} rounds; launches {launched}; peak device memory "
+          f"{peak / 2**30:.2f} GiB")
+    # B1 and B2 on the whole tree: against the plain version on the
+    # concatenation (B2 bitwise its flat form), and B1 against f64 sums, on
+    # random leaves and on the round's own numbers (client 0's residual and
+    # the params)
+    g = gen(dev, 59)
+    s = torch.tensor([-0.37], device=dev)
+    check_tree("mamba2's tree", lm_tree(g, cfg, 1e-3), lm_tree(g, cfg, 1e-3),
+               s)
+    ef0 = flat.tree_map(lambda e: e[0], state.ef)
+    check_b1_f64("mamba2's tree, client 0's residual and the params", ef0,
+                 state.params)
+    return state
+
+
+def phase_lm_sign(state: FLState, dev) -> None:
+    phase(f"mamba2-370m signSGD codec round at full width: N={LM_N}, EF on")
+    cfg = get_config("mamba2-370m")
+    comp = CompressorConfig(kind="signsgd")
+    model, strategy, run = train.lm_setup(
+        lm_args(LM_N, LM_BATCH, "--wire", "codec"), cfg, comp, LM_SEQ)
+    codec = strategy.wire_codec(state.params)
+    wires, frames = [], []
+    encode = codec.encode
+
+    def keep(wire, **kw):
+        wires.append(wire)
+        frames.append(encode(wire, **kw))
+        return frames[-1]
+
+    codec.encode = keep
+    one_round = build_fl_round(model.loss, strategy, run, codec=codec)
+    batches = lm_batches(dev, cfg, LM_N, LM_BATCH, LM_SEQ, 61)
+    s0 = fl_init(state.params, LM_N, strategy)
+    reset_counts()
+    _, m = one_round(s0, batches, 0)
+    torch.cuda.synchronize()
+    launched = counts()
+    del s0
+    want = only(fused_cosine=LM_N, pack_signs=LM_N, unpack_signs=1)
+    if launched != want:
+        raise AssertionError(f"mamba2 signSGD codec round: launches "
+                             f"{launched}, expected {want}")
+    if not (math.isfinite(float(m.loss))
+            and bool(torch.isfinite(m.cosine).all())):
+        raise AssertionError("mamba2 signSGD codec round: non-finite metrics")
+    print(f"  {LM_N} frames of {codec.nbytes} B (d={codec.d}); launches "
+          f"{launched}; loss {float(m.loss):.4f}, cosines "
+          f"{m.cosine.tolist()}")
+    # B3a at d: client 0's update into a section, bitwise the plain pack
+    check_tree_pack("mamba2's tree, client 0's update",
+                    [l.reshape(-1).float() for l in flat.tree_leaves(wires[0][0])],
+                    5)
+    # B3b at d: the round's frames in one launch, each row bitwise the
+    # plain unpack of its frame alone
+    signs_at = codec.spec.section_offsets[0]
+    reset_counts()
+    pm1 = bp_mod.unpack_signs_frames(frames, signs_at, codec.d)
+    launched = counts()
+    torch.cuda.synchronize()
+    if launched != only(unpack_signs=1):
+        raise AssertionError(f"B3b on mamba2's {LM_N} frames: launches "
+                             f"{launched}, expected 1")
+    for i, f in enumerate(frames):
+        plain = bp_mod.unpack_signs_frames_plain([f], signs_at, codec.d)[0]
+        if not same_bits(pm1[i], plain):
+            raise AssertionError(f"B3b on mamba2's frame {i} disagrees with "
+                                 f"its plain version")
+        del plain
+    del pm1
+    # the batch decode (what the round ran), row by row bitwise the
+    # frame-by-frame decode and the canonical payload, which is computed
+    # from the wire without the bytes
+    batch = flat.tree_leaves(codec.recon_batch(frames, state.params))
+    for i, (f, wire) in enumerate(zip(frames, wires)):
+        rows = [t[i] for t in batch]
+        for other, what in ((codec.decode(f), "decoded frame by frame"),
+                            (codec.canonical(wire), "the canonical payload")):
+            if not all(same_bits(a, b) for a, b in zip(
+                    rows, flat.tree_leaves(other))):
+                raise AssertionError(f"mamba2 signSGD: client {i}'s frame "
+                                     f"decoded in the batch differs from "
+                                     f"{what}")
+    print(f"  B3b on the {LM_N} frames (one launch): each row bitwise the "
+          f"plain unpack of its frame; the batch decode bitwise the "
+          f"frame-by-frame decode and the canonical payload of each wire")
+
+
+def phase_lm_routes(dev) -> float:
+    phase(f"mamba2-370m LM.loss at full width, float32, batch "
+          f"{LM_ROUTE_BATCH} x {LM_ROUTE_SEQ}: B4 route vs ssd_scan route; "
+          f"C3")
+    cfg = get_config("mamba2-370m").replace(dtype="float32")
+    kernel_model = build_model(cfg.replace(use_pallas_ssd=True))
+    scan_model = build_model(cfg)
+    g = gen(dev, 67)
+    params = scan_model.init(g)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (
+        LM_ROUTE_BATCH, LM_ROUTE_SEQ), generator=g, device=dev)}
+    leaves, treedef = tree_flatten(params)
+
+    def value_and_grad(model):
+        w = [p.detach().requires_grad_(True) for p in leaves]
+        v = model.loss(tree_unflatten(treedef, w), batch)
+        return v.detach(), torch.autograd.grad(v, w)
+
+    reset_counts()
+    with torch.no_grad():
+        loss_fwd = kernel_model.loss(params, batch)
+    torch.cuda.synchronize()
+    fwd_launches = counts()
+    reset_counts()
+    loss_k, grads_k = value_and_grad(kernel_model)
+    torch.cuda.synchronize()
+    vg_launches = counts()
+    loss_s, grads_s = value_and_grad(scan_model)
+    want_fwd = only(ssd_chunk=cfg.num_layers)
+    # cfg.remat: the backward runs each period's forward again
+    want_vg = only(ssd_chunk=2 * cfg.num_layers)
+    if fwd_launches != want_fwd or vg_launches != want_vg:
+        raise AssertionError(f"B4 launches {fwd_launches} per loss, "
+                             f"{vg_launches} per value and grad; expected "
+                             f"{want_fwd}, {want_vg}")
+    rel_loss = abs(float(loss_k) - float(loss_s)) / abs(float(loss_s))
+    gaps = [float(torch.linalg.vector_norm(a - b)
+                  / torch.linalg.vector_norm(b))
+            for a, b in zip(grads_k, grads_s)]
+    bad = not (math.isfinite(float(loss_k)) and rel_loss <= LM_ROUTE_LOSS_RTOL
+               and float(loss_fwd) == float(loss_k)
+               and max(gaps) <= LM_ROUTE_GRAD_RTOL
+               and all(bool(torch.isfinite(t).all()) for t in grads_k))
+    print(f"  loss {float(loss_k):.6f} (B4) vs {float(loss_s):.6f} "
+          f"(ssd_scan): {rel_loss:.3e} (bound {LM_ROUTE_LOSS_RTOL}); "
+          f"gradients' relative L2 gap per leaf, worst {max(gaps):.3e} "
+          f"(bound {LM_ROUTE_GRAD_RTOL}); B4 launches {fwd_launches} per "
+          f"loss evaluation, {vg_launches} per value and grad")
+    if bad:
+        raise AssertionError("B4 route vs ssd_scan route at full width out "
+                             "of bounds")
+    del grads_k, grads_s
+    # C3: the 3SFC encoder's grad-of-grad through B4's route raises
+    spec = syn_spec_for(cfg, LM_COMP)
+    syn0 = init_syn(g, spec)
+    target = flat.tree_map(torch.ones_like, params)
+    try:
+        threesfc.encode(syn_loss_fn(kernel_model), params, target, syn0,
+                        steps=1)
+    except RuntimeError as e:
+        if "differentiable once" not in str(e):
+            raise
+        print(f"  C3: 3SFC encoding through the B4 route raises: {e}")
+    else:
+        raise AssertionError("C3: 3SFC encoding through the B4 route "
+                             "returned instead of raising")
+    return rel_loss
+
+
+def phase_lm_cpu(dev) -> None:
+    phase(f"mamba2 round at full width cut to {LM_CPU_LAYERS} layers, "
+          f"float32, N={LM_CPU_N}, K=1, S={LM_CPU_SEQ}: card vs CPU")
+    cfg = get_config("mamba2-370m").replace(num_layers=LM_CPU_LAYERS,
+                                            dtype="float32")
+    cpu = torch.device("cpu")
+    model, strategy, run = train.lm_setup(lm_args(LM_CPU_N, LM_CPU_BATCH),
+                                          cfg, LM_COMP, LM_CPU_SEQ)
+    one_round = build_fl_round(model.loss, strategy, run)
+    params = model.init(gen(cpu, 71))
+    batches = lm_batches(cpu, cfg, LM_CPU_N, LM_CPU_BATCH, LM_CPU_SEQ, 72)
+    syns = [init_syn(gen(cpu, 73 + i), strategy.syn_spec)
+            for i in range(LM_CPU_N)]
+    syn0 = SynData(*[torch.stack(ts) for ts in zip(*syns)])
+    to_dev = lambda t: flat.tree_map(lambda x: x.to(dev), t)
+    s0 = fl_init(to_dev(params), LM_CPU_N, strategy)
+    t0 = time.perf_counter()
+    s_card, m_card = one_round(s0, to_dev(batches), 0,
+                               syn0=SynData(*to_dev(list(syn0))))
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s_cpu, m_cpu = one_round(fl_init(params, LM_CPU_N, strategy), batches,
+                             0, syn0=syn0)
+    t_cpu = time.perf_counter() - t0
+    # the same round on the card from params moved by a few ulps
+    g = gen(dev, 74)
+    nudged = FLState(flat.tree_map(lambda p: p * (1 + LM_NUDGE * (
+        torch.rand(p.shape, generator=g, device=dev) - 0.5)), s0.params),
+        s0.ef, s0.round)
+    s_nudge, _ = one_round(nudged, to_dev(batches), 0,
+                           syn0=SynData(*to_dev(list(syn0))))
+    update = to_cpu(flat.tree_sub(s0.params, s_card.params))
+    gap_cpu = rel_gap(update, flat.tree_sub(params, s_cpu.params))
+    gap_nudge = rel_gap(update, to_cpu(flat.tree_sub(nudged.params,
+                                                     s_nudge.params)))
+    print(f"  card {t_card:.2f} s, CPU {t_cpu:.2f} s; loss "
+          f"{float(m_card.loss):.6f} vs {float(m_cpu.loss):.6f}, cosines "
+          f"{m_card.cosine.tolist()} vs {m_cpu.cosine.tolist()}; the "
+          f"update's relative L2 gap to the card's: CPU {gap_cpu:.3e}, card "
+          f"from params x (1 + {LM_NUDGE:g}·U(-1/2, 1/2)) {gap_nudge:.3e} "
+          f"(bound on the CPU's: max({ROUND_FLOOR:g}, {ROUND_FACTOR:g} x "
+          f"the nudge's))")
+    bound = max(ROUND_FLOOR, ROUND_FACTOR * gap_nudge)
+    if not gap_cpu <= bound:
+        raise AssertionError(f"mamba2 round: the CPU's update is {gap_cpu:.3e} "
+                             f"from the card's, over {bound:.3e}")
+    assert_close("mamba2 round, card vs CPU params", s_card.params,
+                 s_cpu.params, PARAM_TOL)
+    assert_close("mamba2 round, card vs CPU EF", s_card.ef, s_cpu.ef, EF_TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -1913,7 +2260,8 @@ def print_profile(label: str, prof: dict) -> None:
     busy = (f"{prof['round_device_ms']:.3f} ms, busy share "
             f"{prof['round_device_ms'] / prof['round_wall_ms']:.4f}"
             if prof["round_device_ms"] else "not measured")
-    print(f"  {label}: wall {prof['round_wall_ms']:.3f} ms (median of 3), "
+    print(f"  {label}: wall {prof['round_wall_ms']:.3f} ms (median of "
+          f"{len(prof['walls_ms'])}), "
           f"device kernel time {busy}, {prof['device_launches']} device "
           f"kernels and copies")
     for name, (t, cnt) in sorted(prof["per_kernel_us"].items()):
@@ -2033,6 +2381,76 @@ def b56_time_rows(dev, launched, errs) -> list:
     return rows
 
 
+def lm_time_rows(dev) -> dict:
+    """B1 and B2 on mamba2's 11-leaf tree (d = 368,338,432) and B3a's tree
+    entry into a sign section and B3b's frames entry on LM_N frames at d,
+    in CUDA graphs of LM_TIME_REPS calls, each beside its flat form on the
+    concatenation; the plain versions and the one-call PyTorch yardsticks
+    (B1: ``torch.mm`` of the (2, d) stack by its transpose; B2:
+    ``torch.addcmul``) on the flat vectors. Bounds: bytes, each input read
+    once and each output written once."""
+    cfg = get_config("mamba2-370m")
+    g = gen(dev, 79)
+    a, b = lm_tree(g, cfg, 1.0), lm_tree(g, cfg, 1.0)
+    la = [t.reshape(-1) for t in flat.tree_leaves(a)]
+    lb = [t.reshape(-1) for t in flat.tree_leaves(b)]
+    d = sum(t.numel() for t in la)
+    x, y = torch.cat(la), torch.cat(lb)
+    s = torch.tensor([0.37], device=dev)
+    nb = bp_mod.num_bytes(d)
+    section = torch.empty(nb, dtype=torch.uint8, device=dev)
+    frames = []
+    for leaves in (la, lb):
+        f = torch.empty(nb, dtype=torch.uint8, device=dev)
+        bp_mod.pack_signs_tree(leaves, f)
+        frames.append(f)
+    frames = frames * (LM_N // 2)
+    words = bp_mod.pack_signs(x)
+    X = torch.stack([x, y])
+    reps = dict(reps=LM_TIME_REPS, replays=LM_TIME_REPLAYS)
+    once = dict(reps=1, replays=3)
+    rows = {}
+    for name, tree, flat_form, plain, lib, nbytes, flops in (
+            ("fused_cosine", lambda: fc_mod.fused_cosine_leaves(la, lb),
+             lambda: fc_mod.fused_cosine(x, y),
+             lambda: fc_mod.fused_cosine_plain(x, y),
+             lambda: torch.mm(X, X.T), 8 * d + 12, 6 * d),
+            ("ef_update", lambda: ef_mod.ef_update_leaves(la, lb, s),
+             lambda: ef_mod.ef_update(x, y, s),
+             lambda: ef_mod.ef_update_plain(x, y, s),
+             lambda: torch.addcmul(x, y, s, value=-1), 12 * d + 4, 2 * d),
+            ("pack_signs", lambda: bp_mod.pack_signs_tree(la, section),
+             lambda: bp_mod.pack_signs(x),
+             lambda: bp_mod.pack_signs_plain(x), None, 4 * d + nb, d),
+            ("unpack_signs",
+             lambda: bp_mod.unpack_signs_frames(frames, 0, d),
+             lambda: bp_mod.unpack_signs(words, d),
+             lambda: bp_mod.unpack_signs_plain(words, d), None,
+             LM_N * (nb + 4 * d), LM_N * d)):
+        reset_counts()
+        tree()
+        per_call = counts()[name]
+        ms = [graph_ms(tree, **reps), graph_ms(tree, **reps)]
+        flat_ms = graph_ms(flat_form, **reps)
+        plain_ms = graph_ms(plain, **once)
+        lib_ms = graph_ms(lib, **reps) if lib is not None else None
+        b_ms, b_by = bound_ms(nbytes, flops)
+        what = (f"{LM_N} frames" if name == "unpack_signs"
+                else f"{len(la)} leaves")
+        lib_txt = f"{lib_ms:.6f}" if lib_ms is not None else "none"
+        print(f"  {name} on mamba2's tree ({what}, d={d}): kernel_ms="
+              f"{ms[0]:.6f}, {ms[1]:.6f} bound_ms={b_ms:.6f} ({b_by}; "
+              f"{ms[0] and b_ms / ms[0]:.3f} of it) flat form "
+              f"{flat_ms:.6f} plain_ms={plain_ms:.6f} (flat, one frame) "
+              f"library_ms={lib_txt} launches_per_call={per_call}")
+        rows[name] = {"tree_mamba2": {
+            "d": d, "leaves": len(la), "ms": ms[0], "ms_again": ms[1],
+            "flat_ms": flat_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "launches_per_call": per_call}}
+    return rows
+
+
 def phase_times(dev, launched, errs, rounds):
     """``launched`` holds each kernel's launches on its path's run;
     ``rounds`` is [(label, one_round)] to profile."""
@@ -2103,8 +2521,17 @@ def phase_times(dev, launched, errs, rounds):
         row.update(b3.get(row["name"], {}))
     rows.append(b4_time_row(dev, launched["ssd_chunk"], errs["ssd_chunk"]))
     rows += b56_time_rows(dev, launched, errs)
+    t0 = time.perf_counter()
+    for name, extra in lm_time_rows(dev).items():
+        next(r for r in rows if r["name"] == name).update(extra)
+    print(f"  (mamba2's rows in {time.perf_counter() - t0:.1f} s)")
     for label, one_round in rounds:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         print_profile(label, round_profile(one_round, KERNEL_NAMES))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"    peak device memory {peak:.2f} GiB (the process's live "
+              f"tensors included)")
     return rows
 
 
@@ -2160,6 +2587,15 @@ def main() -> int:
         fault_round, fault_state = phase_faults(out_dir, state, batches,
                                                 syn0)
         cnn_states = phase_cnns(out_dir, dev)
+        lm_state = phase_lm_train(out_dir, dev)
+    phase_lm_sign(lm_state, dev)
+    phase_lm_routes(dev)
+    phase_lm_cpu(dev)
+    lm_cfg = get_config("mamba2-370m")
+    lm_model, lm_strategy, lm_run = train.lm_setup(
+        lm_args(LM_N, LM_BATCH), lm_cfg, LM_COMP, LM_SEQ)
+    lm_one_round = build_fl_round(lm_model.loss, lm_strategy, lm_run)
+    lm_inputs = lm_batches(dev, lm_cfg, LM_N, LM_BATCH, LM_SEQ, 83)
     cnn_profiles = []
     for name in ("convnet", "regnet"):
         cnn_state, dataset = cnn_states[name]
@@ -2190,6 +2626,9 @@ def main() -> int:
          f"{fault_state.round})",
          lambda: fault_round(fault_state, batches, 0, syn0=syn0)),
         *cnn_profiles,
+        (f"mamba2-370m 3SFC round at full width (N={LM_N}, K=1, "
+         f"B={LM_BATCH}, S={LM_SEQ}, round {lm_state.round})",
+         lambda: lm_one_round(lm_state, lm_inputs, 0)),
     ])
 
     print(card)

@@ -3,8 +3,9 @@
 * the training set and the Dirichlet partition live on the device
   (``device_pools`` pads the ragged per-client index lists to an ``(N, P)``
   pool matrix — padding is never sampled);
-* per-round batches are gathered on the device (``vision_batcher``) — no
-  per-round host -> device transfer;
+* per-round batches are gathered on the device (``vision_batcher``, and
+  ``token_batcher`` for the LM runs) — no per-round host -> device
+  transfer;
 * ``RoundEngine`` runs rounds in blocks of ``eval_every`` and fetches a
   block's metrics to the host once, at its end.
 
@@ -87,6 +88,38 @@ def vision_batcher(train_x: np.ndarray, train_y: np.ndarray,
             rows.append(pools.index[i, pos])
         idx = torch.stack(rows)
         return {"x": x[idx], "y": y[idx]}
+
+    return batch_fn
+
+
+def token_batcher(tokens: np.ndarray, num_clients: int, local_steps: int,
+                  local_batch: int,
+                  extras: Optional[Dict[str, Tuple[int, ...]]] = None, *,
+                  device: Optional[torch.device] = None) -> BatchFn:
+    """IID ``{"tokens"}`` batches of shape (N, K, B, S) gathered from the
+    token set, copied to ``device`` once; client ``i`` of round ``r`` draws
+    its (K, B) rows uniformly from a generator seeded with
+    ``fold_in(data_seed, r, i)``. ``extras`` maps a batch key to a trailing
+    shape, materialized as ``(N, K, B, *shape)`` f32 zeros (the
+    multimodal stubs)."""
+    device = torch.device("cpu") if device is None else torch.device(device)
+    toks = torch.as_tensor(np.asarray(tokens), device=device)
+    n = toks.shape[0]
+    extras = dict(extras or {})
+
+    def batch_fn(data_seed: int, round_idx: int) -> PyTree:
+        rows = []
+        for i in range(num_clients):
+            gen = torch.Generator(device=device)
+            gen.manual_seed(fold_in(data_seed, round_idx, i))
+            rows.append(torch.randint(0, n, (local_steps, local_batch),
+                                      generator=gen, device=device))
+        batch = {"tokens": toks[torch.stack(rows)]}
+        for name, shape in extras.items():
+            batch[name] = torch.zeros(
+                (num_clients, local_steps, local_batch, *shape),
+                dtype=torch.float32, device=device)
+        return batch
 
     return batch_fn
 

@@ -337,7 +337,14 @@ def ssd_chunked(xdt: torch.Tensor, dA: torch.Tensor, Bc: torch.Tensor,
 class _SSDChunkedAD(torch.autograd.Function):
     """Forward through kernel B4 (``ssd_chunked``); backward through autograd
     of the plain ``models.ssm.ssd_scan``, the reference's VJP (the JAX
-    package has no backward kernel for B4, so neither has the port)."""
+    package has no backward kernel for B4, so neither has the port).
+
+    Differentiable once, as the reference's ``custom_vjp`` is: its backward
+    raises when it runs under ``create_graph`` (the first half of a second
+    derivative, as the 3SFC encoder takes it), where it would otherwise
+    hand back gradients with no graph and so drop the scan's second-order
+    terms without a word. (``once_differentiable`` is not enough: autograd
+    prunes its error node from a second backward to the mixer's input.)"""
 
     @staticmethod
     def forward(ctx, xdt, dA, Bc, Cc, h0, chunk):
@@ -348,6 +355,12 @@ class _SSDChunkedAD(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, gfinal):
         from repro_torch.models.ssm import ssd_scan
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                "the B4 route (use_pallas_ssd=True) is differentiable once, "
+                "as the reference's custom_vjp: a backward with "
+                "create_graph=True (a second derivative, such as the 3SFC "
+                "encoder's) cannot run through it; use the ssd_scan route")
         saved = ctx.saved_tensors
         need = ctx.needs_input_grad[:5]
         with torch.enable_grad():

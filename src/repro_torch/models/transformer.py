@@ -7,27 +7,39 @@ leading ``n_periods`` axis, in the JAX package's layout (``"layers"``, keyed
 a Python loop over that axis. A non-divisible remainder becomes ``tail``
 blocks.
 
-Big-vocab discipline: prefill projects only the last position and decode a
-single token, so the (B, S, V) logits never materialize.
+Big-vocab discipline: the (B, S, V) logits never materialize. Training CE
+walks the sequence in chunks of ``LOSS_CHUNK`` positions (each recomputed
+in the backward, as the reference remats it); prefill projects only the
+last position and decode a single token.
+
+With ``cfg.remat`` and autograd recording, each period runs under
+``torch.utils.checkpoint`` (non-reentrant, so grad-of-grad works), the
+counterpart of the reference's ``jax.checkpoint(period_fn)``: the backward
+recomputes a period's forward instead of keeping its activations.
+
+Synthetic features (3SFC): ``syn_loss`` takes soft input embeddings
+(n, L, d) and soft labels (dense or low-rank over the vocab).
 
 Ported: the ``"ssm"`` blocks (mamba2), ``init``, ``forward_hidden``,
-``init_cache``, ``prefill`` and ``decode_step``. The ``"attn"`` and
-``"rec"`` blocks, ``loss`` and ``syn_loss`` raise "not ported yet"
-(ROADMAP.md).
+``loss``, ``syn_loss``, ``init_cache``, ``prefill`` and ``decode_step``.
+The ``"attn"`` and ``"rec"`` blocks raise "not ported yet" (ROADMAP.md).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.tree import tree_map
+from repro_torch.core.threesfc import SynData, soft_xent
+from repro_torch.core.tree import tree_flatten, tree_map, tree_unflatten
 from repro_torch.models import layers
 from repro_torch.models import params as P_
 from repro_torch.models import ssm as ssm_mod
 
 PyTree = Any
+LOSS_CHUNK = 512          # sequence-chunked CE block size
 
 _NOT_PORTED = "not ported yet, see ROADMAP.md"
 
@@ -112,9 +124,15 @@ def _block_decode(cfg: ModelConfig, btype: str, p: Dict, x_t: torch.Tensor,
     raise _block_error(btype)
 
 
-def _index(tree: PyTree, i: int) -> PyTree:
-    """Period ``i`` of a tree stacked on a leading axis (views)."""
-    return tree_map(lambda t: t[i], tree)
+def _periods(tree: PyTree, n: int) -> list:
+    """The ``n`` periods of a tree stacked on a leading axis, as views from
+    one ``torch.unbind`` per leaf: its backward is one ``stack`` per leaf,
+    where indexing each period would write a zero tensor of the whole
+    stacked leaf per period."""
+    leaves, treedef = tree_flatten(tree)
+    per_leaf = [torch.unbind(t) for t in leaves]
+    return [tree_unflatten(treedef, [ts[i] for ts in per_leaf])
+            for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -163,12 +181,22 @@ class LM:
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, S, d) -> (hidden (B, S, d), aux). One loop over periods."""
         cfg = self.cfg
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for l in range(self.n_periods):
-            pp = _index(params["layers"], l)
+
+        def period_fn(pp, x):
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
             for i, bt in enumerate(self.pattern):
                 x, a = _block_forward(cfg, bt, pp[str(i)], x)
                 aux = aux + a
+            return x, aux
+
+        remat = cfg.remat and torch.is_grad_enabled()
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for pp in _periods(params["layers"], self.n_periods):
+            if remat:
+                x, a = checkpoint(period_fn, pp, x, use_reentrant=False)
+            else:
+                x, a = period_fn(pp, x)
+            aux = aux + a
         for i, bt in enumerate(self.tail):
             x, a = _block_forward(cfg, bt, params["tail"][str(i)], x)
             aux = aux + a
@@ -191,11 +219,55 @@ class LM:
             x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         return self._trunk(params, x)
 
-    def loss(self, params: PyTree, batch) -> torch.Tensor:
-        raise NotImplementedError(f"LM.loss is {_NOT_PORTED}")
+    # ---- training ---------------------------------------------------------
 
-    def syn_loss(self, params: PyTree, syn) -> torch.Tensor:
-        raise NotImplementedError(f"LM.syn_loss is {_NOT_PORTED}")
+    def loss(self, params: PyTree, batch: Dict[str, torch.Tensor]
+             ) -> torch.Tensor:
+        """Next-token CE, sequence-chunked so (B, S, V) never materializes.
+
+        batch: tokens (B, S) int, optional prefix_embeds (B, T, d) (masked
+        out of the loss), optional mask (B, S) f32. Returns
+        ``tot / max(cnt, 1) + aux``.
+        """
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        h, aux = self.forward_hidden(params, tokens,
+                                     batch.get("prefix_embeds"))
+        T = h.shape[1] - S
+        h = h[:, T:, :]                                # token positions only
+        targets = tokens[:, 1:].long()
+        mask = batch.get("mask")
+        mask = (torch.ones(targets.shape, dtype=torch.float32,
+                           device=h.device)
+                if mask is None else mask[:, 1:].to(torch.float32))
+        hs = h[:, :-1, :]
+        chunk = min(LOSS_CHUNK, S - 1)
+
+        def ce(hc, tc, mc):
+            logp = torch.log_softmax(self._logits(params, hc), dim=-1)
+            nll = -torch.gather(logp, -1, tc[..., None])[..., 0]
+            return torch.sum(nll * mc), torch.sum(mc)
+
+        def ce_remat(hc, tc, mc):
+            if torch.is_grad_enabled():
+                return checkpoint(ce, hc, tc, mc, use_reentrant=False)
+            return ce(hc, tc, mc)
+
+        tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+        # whole chunks in order, then the remainder, as the reference sums
+        for start in range(0, S - 1, chunk):
+            sl = slice(start, start + chunk)
+            s_, c_ = ce_remat(hs[:, sl], targets[:, sl], mask[:, sl])
+            tot, cnt = tot + s_, cnt + c_
+        return tot / torch.clamp(cnt, min=1.0) + aux
+
+    # ---- synthetic features (3SFC payload) ---------------------------------
+
+    def syn_loss(self, params: PyTree, syn: SynData) -> torch.Tensor:
+        """Soft-embedding inputs -> soft-label CE (the compressor's F)."""
+        h, aux = self._trunk(params, syn.x.to(self.dtype))
+        return soft_xent(self._logits(params, h), syn.labels()) + aux
 
     # ---- serving ----------------------------------------------------------
 
@@ -221,8 +293,7 @@ class LM:
         if prefix_embeds is not None:
             x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         per_period = []
-        for l in range(self.n_periods):
-            pp = _index(params["layers"], l)
+        for pp in _periods(params["layers"], self.n_periods):
             caches = {}
             for i, bt in enumerate(self.pattern):
                 x, caches[str(i)] = _block_prefill(cfg, bt, pp[str(i)], x,
@@ -244,9 +315,8 @@ class LM:
         cfg = self.cfg
         x_t = layers.embed(params["embed"], token, self.dtype)
         per_period = []
-        for l in range(self.n_periods):
-            pp = _index(params["layers"], l)
-            pc = _index(cache["layers"], l)
+        for pp, pc in zip(_periods(params["layers"], self.n_periods),
+                          _periods(cache["layers"], self.n_periods)):
             new_c = {}
             for i, bt in enumerate(self.pattern):
                 x_t, new_c[str(i)] = _block_decode(cfg, bt, pp[str(i)], x_t,

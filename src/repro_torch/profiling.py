@@ -69,10 +69,13 @@ def call_ms(fn: Callable[[], object], reps: int = 200) -> float:
 def round_profile(one_round: Callable[[], object],
                   kernel_names: Sequence[str] = ()) -> Dict[str, object]:
     """Wall time of ``one_round()`` (median of 3, host clock around
-    ``torch.cuda.synchronize()``), and from torch.profiler over one more:
-    the device kernel time, the number of device kernels and copies, the
-    (time in us, count) of each kernel whose name contains one of
-    ``kernel_names``, and the eight costliest kernels."""
+    ``torch.cuda.synchronize()``), and from torch.profiler over one more,
+    tracing the device's activity only (tracing the host's ops as well
+    costs several times the wall time of a round that launches half a
+    million kernels): the device
+    kernel time, the number of device kernels and copies, the (time in us,
+    count) of each kernel whose name contains one of ``kernel_names``, and
+    the eight costliest kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     walls = []
@@ -82,13 +85,11 @@ def round_profile(one_round: Callable[[], object],
         one_round()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         one_round()
         torch.cuda.synchronize()
     # the device's records only (kernels, copies, fills), summed by name
-    # straight from the trace's events: ``key_averages`` would first build a
-    # Python object for every host op too (seconds for a CNN round)
+    # straight from the trace's events
     by_name: Dict[str, list] = {}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() != DeviceType.CUDA or e.duration_ns() <= 0:

@@ -301,3 +301,70 @@ def test_decode_steps_continue_the_forward_pass():
                                y_full[:, 8:].numpy(), rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(cache.state.numpy(), f_full.numpy(),
                                rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# C3: a second derivative through the mixer (the 3SFC encoder's grad-of-grad)
+# ---------------------------------------------------------------------------
+
+
+def _tangent(p):
+    """A fixed direction T in the params' shapes (numpy, by sorted key)."""
+    rng = np.random.default_rng(14)
+    return {k: rng.standard_normal(tuple(p[k].shape)).astype(np.float32)
+            for k in sorted(p)}
+
+
+def _reference_grad_of_grad(jp, jdims, u, T):
+    """∇_u ⟨∇_w Σ y², T⟩ on the reference."""
+    def objective(u):
+        gw = jax.grad(lambda q: jnp.sum(
+            jssm.ssm_forward(q, u, jdims)[0] ** 2))(jp)
+        return sum(jnp.vdot(gw[k], T[k]) for k in sorted(gw))
+    return jax.grad(objective)(jnp.asarray(u))
+
+
+def _port_grad_of_grad(p, dims, u, T):
+    """∇_u ⟨∇_w Σ y², T⟩ on the port: a backward with ``create_graph``,
+    then one more backward, as ``core.threesfc.encode`` takes them."""
+    keys = sorted(p)
+    w = {k: p[k].detach().requires_grad_(True) for k in keys}
+    ut = _t(u).requires_grad_(True)
+    y, _ = ssm.ssm_forward(w, ut, dims)
+    gw = torch.autograd.grad(torch.sum(y * y), [w[k] for k in keys],
+                             create_graph=True)
+    obj = sum(torch.sum(g * _t(T[k])) for g, k in zip(gw, keys))
+    return torch.autograd.grad(obj, ut)[0]
+
+
+def test_grad_of_grad_through_the_kernel_route_raises():
+    """The B4 route is differentiable once, in the port as in the
+    reference (whose ``custom_vjp`` cannot be linearized again): a second
+    derivative through it raises on both sides instead of returning
+    numbers without the scan's second-order terms."""
+    jdims, dims, jp, p = _mixer(True)
+    u = np.random.default_rng(15).standard_normal(
+        (1, 8, dims.d_model)).astype(np.float32)
+    T = _tangent(p)
+    with pytest.raises(RuntimeError, match="differentiable once"):
+        _port_grad_of_grad(p, dims, u, T)
+    with pytest.raises(ValueError, match="Linearization failed"):
+        _reference_grad_of_grad(jp, jdims, u, T)
+
+
+# 8: one chunk; 16: two chunks; 13: the padded tail
+@pytest.mark.parametrize("seq", [8, 16, 13])
+def test_grad_of_grad_through_ssd_scan_matches_reference(seq):
+    """SCAN_TOL on the gradient divided by its largest element: its
+    elements reach the hundreds here (Σy² over unit-scale inputs), and the
+    two frameworks' f32 sums differ at ~1e-6 of that largest element, far
+    above SCAN_TOL's atol for an element near zero."""
+    jdims, dims, jp, p = _mixer(False)
+    u = np.random.default_rng(15).standard_normal(
+        (1, seq, dims.d_model)).astype(np.float32)
+    T = _tangent(p)
+    got = _port_grad_of_grad(p, dims, u, T).numpy()
+    want = np.asarray(_reference_grad_of_grad(jp, jdims, u, T))
+    scale = np.abs(want).max()
+    assert scale > 1.0
+    np.testing.assert_allclose(got / scale, want / scale, **SCAN_TOL)
