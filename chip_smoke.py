@@ -144,14 +144,31 @@ Phases, in order; any failure exits non-zero:
              on the CPU within the main path's tolerances, with the gap a
              nudge of the params by a few ulps opens beside.
 
+17. fan-out — ``client_parallel='shard_map'`` (``repro_torch.fl.sharding``)
+             on the trainer's MLP setting, 3 rounds each of 3SFC+EF float,
+             fused 3SFC, signSGD codec and phase 14's faulted 3SFC: (a) one
+             rank on NCCL in this process (a 1-shard mesh; the group is
+             destroyed after), (b) two ranks spawned on this card over gloo
+             (``chip_smoke.py --fanout-rank ...``; NCCL refuses two ranks
+             on one device), 5 clients each. In both the final params, the
+             gathered EF, the staleness buffer and every RoundMetrics field
+             are bitwise the single-process rounds', with one collective a
+             round and each rank's own clients' share of kernel launches;
+             the bytes each client puts into the gather, float against
+             fused 3SFC.
+
 Phase 7 adds the full-width mamba2 round's profile and B1, B2 (with
-``torch.addcmul`` beside), B3a and B3b at mamba2's d. The phases run in
-the order 1-6, 8-16, 7, so that the times can report each
-kernel's launches on its path. The last lines are one JSON object with every
-kernel's numbers, the list of kernels, and ``{"ok": true, "device": {...}}``.
+``torch.addcmul`` beside), B3a and B3b at mamba2's d, and the wall time of
+a main-path round under phase 17 (a) beside the single-process round, in
+turns. The phases run in the order 1-6, 8-17, 7, so that the times can
+report each kernel's launches on its path. The last lines are the run's
+wall time from the script's start, the card's name and power limit, one
+JSON object with every kernel's numbers, the list of kernels, and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import itertools
 import json
@@ -162,11 +179,14 @@ import sys
 import tempfile
 import time
 
+# the whole run's wall clock starts here, before torch is imported
+_T0 = time.perf_counter()
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 
 from repro_torch.comm import Codec, frame  # noqa: E402
 from repro_torch.configs.base import (CompressorConfig, FLConfig,  # noqa: E402
@@ -185,6 +205,8 @@ from repro_torch.fl.client import local_train  # noqa: E402
 from repro_torch.fl import faults  # noqa: E402
 from repro_torch.fl.engine import token_batcher  # noqa: E402
 from repro_torch.fl.round import FLState, build_fl_round, fl_init  # noqa: E402
+from repro_torch.fl import sharding as sharding_mod  # noqa: E402
+from repro_torch.fl.sharding import make_fl_shardings  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import bitpack as bp_mod  # noqa: E402
 from repro_torch.kernels import ef_update as ef_mod  # noqa: E402
@@ -194,7 +216,9 @@ from repro_torch.kernels import sign_quant as sq_mod  # noqa: E402
 from repro_torch.kernels import ssd_chunk as ssd_mod  # noqa: E402
 from repro_torch.kernels import topk_mask as tm_mod  # noqa: E402
 from repro_torch.kernels.ftz import FLT_MIN, flush_subnormal  # noqa: E402
+from repro_torch.launch import ranks as ranks_mod  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models.build import (build_model, syn_loss_fn,  # noqa: E402
                                       syn_spec_for, vision_syn_spec)
@@ -303,14 +327,16 @@ LM_ROUTE_LOSS_RTOL, LM_ROUTE_GRAD_RTOL = 1e-4, 1e-3
 # the CNNs'
 LM_CPU_LAYERS, LM_CPU_N, LM_CPU_BATCH, LM_CPU_SEQ = 2, 2, 2, 256
 LM_NUDGE = 1e-6
+# phase 17: rounds of each fan-out case, the ranks of run (b) on one card
+# (gloo: NCCL refuses two ranks on one device) and their time limit, and
+# the walls phase 7 takes of a round under (a) and single-process, in turns
+FANOUT_ROUNDS, FANOUT_WORLD, FANOUT_TIMEOUT_S = 3, 2, 300
+FANOUT_WALLS = 3
 # B1-B3 at mamba2's d in CUDA graphs: calls per graph and replays
 LM_TIME_REPS, LM_TIME_REPLAYS = 10, 11
 # vectors of 4 Mi + 5 elements the B5/B6 timing rotates over: 6 x 16.8 MB
 # of inputs, twice the H100's 50 MB L2
 L2_ROTATE = 6
-
-
-_T0 = time.perf_counter()
 
 
 def phase(name: str) -> None:
@@ -2098,6 +2124,272 @@ def phase_lm_cpu(dev) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 17: the client fan-out (client_parallel='shard_map') on the card
+# ---------------------------------------------------------------------------
+
+
+def fanout_cases(state: FLState, fault_state: FLState):
+    """(label, trainer method, round knobs, start state) of phase 17: the
+    main path's 3SFC+EF float round (B1, B2), fused 3SFC, the signSGD codec
+    round (B3a, B3b, B1) and phase 14's faulted 3SFC round."""
+    return (("3SFC+EF float", "threesfc", {}, state),
+            ("fused 3SFC", "threesfc", {"fused": True}, state),
+            ("signSGD codec", "signsgd", {"wire": "codec"}, state),
+            ("faulted 3SFC", "threesfc", dict(FAULT_KNOBS), fault_state))
+
+
+def fanout_rounds(method, knobs, state, batches, mesh=None):
+    """FANOUT_ROUNDS rounds of one phase-17 case, single-process or sharded
+    over ``mesh``; returns (state, metrics, launches, collectives, bytes
+    gathered per local client per round). Every counter is set to 0 just
+    before the rounds and read just after."""
+    kw = dict(knobs)
+    if mesh is not None:
+        kw.update(client_parallel="shard_map", mesh=mesh)
+        sh = make_fl_shardings(mesh)
+        state, batches = sh.place_state(state), sh.place_client_tree(batches)
+        local = len(sh.local_clients(N))
+    one_round = mlp_round(method, state.params, **kw)
+    reset_counts()
+    c0, b0 = sharding_mod.COLLECTIVES, sharding_mod.GATHERED_BYTES
+    ms = []
+    for r in range(FANOUT_ROUNDS):
+        state, m = one_round(state, batches, r)
+        ms.append(m)
+    if batches["x"].is_cuda:
+        torch.cuda.synchronize()
+    launched = counts()
+    coll = sharding_mod.COLLECTIVES - c0
+    per_client = ((sharding_mod.GATHERED_BYTES - b0)
+                  / (FANOUT_ROUNDS * local) if mesh is not None else 0.0)
+    return state, ms, launched, coll, per_client
+
+
+def fanout_record(state: FLState, ms) -> dict:
+    """What phase 17 compares, on the host: params, the whole EF, the
+    staleness buffer and every RoundMetrics field of every round."""
+    return {"state": to_cpu((state.params, state.ef, state.buf,
+                             state.buf_w)),
+            "metrics": [to_cpu([torch.as_tensor(getattr(m, f))
+                                for f in m._fields]) for m in ms]}
+
+
+def same_record(a: dict, b: dict) -> bool:
+    return ranks_mod.tree_bits_diff((a["state"], a["metrics"]),
+                                    (b["state"], b["metrics"])) is None
+
+
+def want_launches(label: str, clients: int) -> dict:
+    """A rank's launches over FANOUT_ROUNDS rounds with ``clients`` local
+    clients: the encoder's per client, B3b once per round for all N
+    frames."""
+    r = FANOUT_ROUNDS
+    if label == "signSGD codec":
+        return only(fused_cosine=r * clients, pack_signs=r * clients,
+                    unpack_signs=r)
+    return only(fused_cosine=r * clients * (S + 1), ef_update=r * clients)
+
+
+@contextlib.contextmanager
+def nccl_one_rank(dev):
+    """A one-rank NCCL process group (a FileStore, no port) and its (1, 1)
+    host mesh; the group is destroyed on exit."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pg_") as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1,
+            device_id=dev)
+        try:
+            yield make_host_mesh(device=dev)
+        finally:
+            dist.destroy_process_group()
+
+
+def fanout_in_process(cases, batches, dev):
+    """Phase 17's single-process rounds, then (a): one rank on NCCL in
+    this process, the 1-shard mesh. Returns (the single-process records,
+    the bytes (a) gathered per client per round)."""
+    single, out = {}, {}
+    for label, method, knobs, st in cases:
+        s1, m1, l1, c1, _ = fanout_rounds(method, knobs, st, batches)
+        if l1 != want_launches(label, N) or c1 != 0:
+            raise AssertionError(f"{label} single-process launches {l1}, "
+                                 f"collectives {c1}")
+        single[label] = fanout_record(s1, m1)
+    with nccl_one_rank(dev) as mesh:
+        sh = make_fl_shardings(mesh)
+        for label, method, knobs, st in cases:
+            s2, m2, l2, c2, per = fanout_rounds(method, knobs, st, batches,
+                                                mesh)
+            got = fanout_record(sh.gather_state(s2), m2)
+            if not same_record(single[label], got):
+                raise AssertionError(f"(a) {label}: the 1-rank sharded round "
+                                     f"is not bitwise the single-process one")
+            if l2 != want_launches(label, N) or c2 != FANOUT_ROUNDS:
+                raise AssertionError(f"(a) {label}: launches {l2}, "
+                                     f"collectives {c2}")
+            out[label] = per
+            print(f"  (a) 1 rank, NCCL: {label}: bitwise the single-process "
+                  f"round (params, EF, buffer, {len(m2[0]._fields)} metrics "
+                  f"x {FANOUT_ROUNDS} rounds); {c2} collectives, launches "
+                  f"{l2}; {per:.0f} B gathered per client per round")
+    return single, out
+
+
+def phase_fanout(state: FLState, fault_state: FLState, batches, dev) -> dict:
+    phase(f"client fan-out: client_parallel='shard_map' on the card, "
+          f"{FANOUT_ROUNDS} rounds of each case (N={N}, K={K}, B={B}, "
+          f"S={S})")
+    cases = fanout_cases(state, fault_state)
+    # (b)'s ranks start first and run beside this process's rounds
+    with fanout_ranks(cases, batches, dev) as collect_b:
+        single, out = fanout_in_process(cases, batches, dev)
+        out_b = collect_b(single)
+    for label in out:
+        print(f"  gathered bytes per client per round, {label}: (a) "
+              f"{out[label]:.0f}, (b) {out_b[label]:.0f}")
+    ratio = out["3SFC+EF float"] / out["fused 3SFC"]
+    print(f"  float / fused 3SFC bytes per client: {ratio:.4f} (the "
+          f"reference's per-device all-gather bytes 796,852 / 3,188 = "
+          f"{796_852 / 3_188:.4f})")
+    if (out["3SFC+EF float"], out["fused 3SFC"]) != (4 * MLP_D + 12,
+                                                     4 * 795 + 8):
+        raise AssertionError(f"gathered bytes per client {out}")
+    if out_b != out:
+        raise AssertionError(f"(b) gathered {out_b} bytes per client, (a) "
+                             f"{out}")
+    return out
+
+
+@contextlib.contextmanager
+def fanout_ranks(cases, batches, dev):
+    """Phase 17 (b): FANOUT_WORLD ranks spawned on ``dev`` over gloo, each
+    running its N / FANOUT_WORLD clients of every case while this process
+    runs the single-process rounds and (a). Yields ``collect(single)``,
+    which waits for the ranks and holds each rank's params, gathered EF
+    and metrics bitwise to the single-process rounds; returns the bytes
+    gathered per client per round."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fanout_") as tmp:
+        torch.save({"batches": to_cpu(batches),
+                    "states": [(to_cpu((st.params, st.ef, st.buf, st.buf_w)),
+                                st.round) for _, _, _, st in cases]},
+                   os.path.join(tmp, "inputs.pt"))
+        store = os.path.join(tmp, "store")
+        argvs = [[sys.executable, os.path.abspath(__file__), "--fanout-rank",
+                  str(r), str(FANOUT_WORLD), store, tmp, str(dev)]
+                 for r in range(FANOUT_WORLD)]
+        logs = [os.path.join(tmp, f"rank{r}.log") for r in range(FANOUT_WORLD)]
+        ranks = ranks_mod.Ranks(argvs, logs)
+
+        def collect(single) -> dict:
+            rcs = ranks.join(FANOUT_TIMEOUT_S)
+            for r, rc in enumerate(rcs):
+                lines = ranks.log(r).strip().splitlines()
+                print("\n".join(f"  (b) rank {r}: {line}" for line in
+                                lines[-(30 if rc else 6):]))
+                if rc != 0:
+                    raise AssertionError(f"(b) rank {r} exited {rc}")
+            per = {}
+            local = N // FANOUT_WORLD
+            for r in range(FANOUT_WORLD):
+                res = torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                for label, _, _, _ in cases:
+                    got = res[label]
+                    if not same_record(single[label], got["record"]):
+                        raise AssertionError(f"(b) rank {r} {label}: not "
+                                             f"bitwise the single-process "
+                                             f"round")
+                    if (got["launches"] != want_launches(label, local)
+                            or got["collectives"] != FANOUT_ROUNDS):
+                        raise AssertionError(
+                            f"(b) rank {r} {label}: launches "
+                            f"{got['launches']}, collectives "
+                            f"{got['collectives']}")
+                    per[label] = got["per_client"]
+            for label, _, _, _ in cases:
+                print(f"  (b) {FANOUT_WORLD} ranks on one card, gloo: "
+                      f"{label}: every rank bitwise the single-process "
+                      f"round, {FANOUT_ROUNDS} collectives, launches per "
+                      f"rank {want_launches(label, local)}")
+            return per
+
+        with ranks:
+            yield collect
+
+
+def fanout_walls(state: FLState, batches, dev) -> dict:
+    """Phase 7: the wall time (host clock around ``torch.cuda.synchronize``)
+    of one main-path 3SFC round under phase 17 (a), the 1-rank sharded
+    round, beside the single-process round, FANOUT_WALLS each in turns
+    after one warm-up each. The gap is the gather path's cost on one
+    card."""
+    def wall(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    with nccl_one_rank(dev) as mesh:
+        sh = make_fl_shardings(mesh)
+        single = mlp_round("threesfc", state.params)
+        sharded = mlp_round("threesfc", state.params,
+                            client_parallel="shard_map", mesh=mesh)
+        placed, local = sh.place_state(state), sh.place_client_tree(batches)
+        runs = {"single": lambda: single(state, batches, 0),
+                "sharded": lambda: sharded(placed, local, 0)}
+        walls = {k: [] for k in runs}
+        for k, fn in runs.items():
+            wall(fn)
+        for _ in range(FANOUT_WALLS):
+            for k, fn in runs.items():
+                walls[k].append(wall(fn))
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    print(f"  main-path round wall ms, in turns: single-process "
+          f"{[round(w, 3) for w in walls['single']]} (median "
+          f"{med['single']:.3f}), 1-rank shard_map on NCCL "
+          f"{[round(w, 3) for w in walls['sharded']]} (median "
+          f"{med['sharded']:.3f}); gap {med['sharded'] - med['single']:+.3f}")
+    return {"walls_ms": walls, "median_ms": med}
+
+
+def fanout_child(argv) -> int:
+    """One rank of phase 17 (b): ``chip_smoke.py --fanout-rank RANK WORLD
+    STORE DIR DEVICE``."""
+    rank, world, store, tmp = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    dev = torch.device(argv[4])
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        inputs = torch.load(os.path.join(tmp, "inputs.pt"))
+        to_dev = lambda tree: flat.tree_map(lambda x: x.to(dev), tree)
+        batches = to_dev(inputs["batches"])
+        mesh = make_host_mesh(device=dev)
+        sh = make_fl_shardings(mesh)
+        res = {}
+        states = []
+        for (params, ef, buf, buf_w), rnd in inputs["states"]:
+            params, ef, buf, buf_w = to_dev((params, ef, buf, buf_w))
+            states.append(FLState(params, ef, rnd, buf, buf_w))
+        for (label, method, knobs, _), st in zip(
+                fanout_cases(None, None), states):
+            s2, m2, launched, coll, per = fanout_rounds(method, knobs, st,
+                                                        batches, mesh)
+            res[label] = {"record": fanout_record(sh.gather_state(s2), m2),
+                          "launches": launched, "collectives": coll,
+                          "per_client": per}
+            print(f"{label}: clients {list(sh.local_clients(N))}, launches "
+                  f"{launched}, collectives {coll}", flush=True)
+        torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # phase 7: times
 # ---------------------------------------------------------------------------
 
@@ -2591,6 +2883,7 @@ def main() -> int:
     phase_lm_sign(lm_state, dev)
     phase_lm_routes(dev)
     phase_lm_cpu(dev)
+    fanout_bytes = phase_fanout(state, fault_state, batches, dev)
     lm_cfg = get_config("mamba2-370m")
     lm_model, lm_strategy, lm_run = train.lm_setup(
         lm_args(LM_N, LM_BATCH), lm_cfg, LM_COMP, LM_SEQ)
@@ -2630,7 +2923,12 @@ def main() -> int:
          f"B={LM_BATCH}, S={LM_SEQ}, round {lm_state.round})",
          lambda: lm_one_round(lm_state, lm_inputs, 0)),
     ])
+    fanout = fanout_walls(state, batches, dev)
+    print(json.dumps({"fanout": {**fanout, "gathered_bytes_per_client":
+                                 fanout_bytes}}))
 
+    print(f"chip_smoke wall {time.perf_counter() - _T0:.1f} s (from the "
+          f"script's start, the kernels' build included)")
     print(card)
     print(json.dumps({"kernels": rows}))
     print("kernels: " + json.dumps([r["name"] for r in rows]))
@@ -2641,4 +2939,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--fanout-rank"]:
+        sys.exit(fanout_child(sys.argv[2:]))
     sys.exit(main())

@@ -1,17 +1,19 @@
 """RunConfig: the knobs of one federated run, validated at construction.
 
-The fields the port runs: the FL schedule (``fl``), the client fan-out,
-the wire mode and its dtype policy, fused decode, microbatching, the
-fault model (``repro_torch.fl.faults``) and the transport at its default.
-The checks copy the JAX package's ``configs/run.py`` for these fields; a
-knob whose path is not ported yet (``client_parallel='shard_map'``,
-``transport='socket'``) raises ``NotImplementedError``.
+The fields the port runs: the FL schedule (``fl``), the client fan-out
+(the single-process loop, or ``'shard_map'`` over the ranks of ``mesh``,
+``repro_torch.fl.sharding``), the wire mode and its dtype policy, fused
+decode, microbatching, the fault model (``repro_torch.fl.faults``) and the
+transport at its default. The checks copy the JAX package's
+``configs/run.py`` for these fields; ``transport='socket'``, whose path is
+not ported yet, raises ``NotImplementedError``. ``mesh`` is runtime state:
+``to_json`` leaves it out.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 from repro_torch.configs.base import FLConfig
 
@@ -27,7 +29,8 @@ class RunConfig:
     """One federated run: FL schedule + compressor + fan-out knobs."""
 
     fl: FLConfig = field(default_factory=FLConfig)
-    # client fan-out: 'vmap' is the single-device loop over clients
+    # client fan-out: 'vmap' is the single-process loop over clients;
+    # 'shard_map' runs each rank's own clients and gathers their messages
     client_parallel: str = "vmap"
     # what crosses the client/server boundary: float trees (accounted
     # bytes) or framed uint8 codec buffers (measured bytes)
@@ -55,6 +58,9 @@ class RunConfig:
     fault_seed: int = 0
     # -- transport ---------------------------------------------------------
     transport: str = "inproc"
+    # -- runtime (never serialized) ----------------------------------------
+    # the DeviceMesh of the shard_map fan-out (repro_torch.launch.mesh)
+    mesh: Any = field(default=None, compare=False, repr=False)
 
     def __post_init__(self):
         if self.client_parallel not in CLIENT_PARALLEL_MODES:
@@ -87,14 +93,22 @@ class RunConfig:
             raise ValueError(
                 f"transport must be 'inproc' or 'socket', got "
                 f"{self.transport!r}")
+        if self.transport == "socket" and self.client_parallel != "vmap":
+            raise ValueError(
+                "transport='socket' requires client_parallel='vmap': "
+                "worker processes ARE the client fan-out (shard_map is "
+                "the in-process mesh path)")
         if self.fused_decode and self.staleness_max > 0:
             raise ValueError(
                 "fused_decode is incompatible with staleness_max > 0: the "
                 "staleness buffer banks per-client reconstructions, which "
                 "the fused aggregate never materializes")
         if self.client_parallel == "shard_map":
-            raise NotImplementedError(
-                f"client_parallel='shard_map' {_NOT_PORTED}")
+            if self.mesh is None:
+                raise ValueError(
+                    "client_parallel='shard_map' requires an explicit mesh "
+                    "(see repro_torch.fl.sharding.make_fl_shardings)")
+            self.shardings().check_divisible(self.fl.num_clients)
         if self.transport == "socket":
             raise NotImplementedError(f"transport='socket' {_NOT_PORTED}")
 
@@ -105,16 +119,34 @@ class RunConfig:
         return (self.participation_rate < 1.0 or self.drop_rate > 0.0
                 or self.straggler_rate > 0.0 or self.staleness_max > 0)
 
+    def shardings(self):
+        """The mesh's ``FLShardings`` (shard_map only)."""
+        # fl.sharding sits above this package: imported here
+        from repro_torch.fl.sharding import make_fl_shardings
+        return make_fl_shardings(self.mesh)
+
+    def client_axes(self) -> Optional[Tuple[str, ...]]:
+        """Mesh axes of the shard_map fan-out; None for the vmap fan-out."""
+        if self.client_parallel != "shard_map":
+            return None
+        return self.shardings().axes
+
     def replace(self, **kw) -> "RunConfig":
         return dataclasses.replace(self, **kw)
 
     def to_json(self) -> Dict[str, Any]:
-        """JSON-serializable dict of every field."""
-        return dataclasses.asdict(self)
+        """JSON-serializable dict of every field but the runtime ``mesh``."""
+        out = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
+               if f.name != "mesh"}
+        out["fl"] = dataclasses.asdict(self.fl)
+        return out
 
     @classmethod
-    def from_flags(cls, args, *, compressor) -> "RunConfig":
-        """Build from the training CLI's argparse namespace."""
+    def from_flags(cls, args, *, compressor, client_parallel: str = "vmap",
+                   mesh=None) -> "RunConfig":
+        """Build from the training CLI's argparse namespace.
+        ``client_parallel`` arrives already de-'auto'-ed (the world-size
+        probe is the trainer's, ``launch.train.make_fanout``)."""
         fl = FLConfig(
             num_clients=args.clients,
             local_steps=args.local_steps,
@@ -126,6 +158,8 @@ class RunConfig:
             seed=args.seed,
         )
         return cls(fl=fl,
+                   client_parallel=client_parallel,
+                   mesh=mesh,
                    wire=getattr(args, "wire", "float"),
                    wire_policy=getattr(args, "wire_policy", "fp32"),
                    participation_rate=getattr(args, "participation_rate", 1.0),

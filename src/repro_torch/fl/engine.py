@@ -23,6 +23,14 @@ so how rounds are grouped into blocks never changes the trajectory: blocks
 [3] and [2, 1] give bitwise the same state (eval-cadence invariance). The
 round's fault schedule is a pure function of ``(fault_seed, absolute
 round)`` too (``repro_torch.fl.faults``), so the same holds under faults.
+
+Sharded fan-out: with ``RoundEngine(..., shardings=FLShardings)``
+(``repro_torch.fl.sharding``) every rank runs the same engine; its state
+holds the EF rows of the rank's own clients (``init_state`` places it), and
+its batcher, given the rank's client range (``clients=``), draws only
+those clients' batches. A batch is a pure function of ``(seed, round,
+client)``, so each client's batch is the one the single-process engine
+draws for it.
 """
 from __future__ import annotations
 
@@ -71,21 +79,29 @@ def device_pools(parts: Sequence[np.ndarray],
 
 def vision_batcher(train_x: np.ndarray, train_y: np.ndarray,
                    pools: ClientPools, local_steps: int,
-                   local_batch: int) -> BatchFn:
-    """Non-iid ``{"x", "y"}`` batches gathered from device-resident data."""
+                   local_batch: int, *,
+                   clients: Optional[range] = None) -> BatchFn:
+    """Non-iid ``{"x", "y"}`` batches gathered from device-resident data.
+    ``clients`` names the global client id of each row of ``pools`` (a
+    rank's ``FLShardings.local_clients`` beside its ``place_pools`` rows);
+    by default row i is client i."""
     device = pools.index.device
     x = torch.as_tensor(train_x, device=device)
     y = torch.as_tensor(train_y, device=device)
     sizes = pools.size.tolist()          # host copy: randint needs ints
+    clients = range(len(sizes)) if clients is None else clients
+    if len(clients) != len(sizes):
+        raise ValueError(f"{len(clients)} client ids for {len(sizes)} pool "
+                         f"rows")
 
     def batch_fn(data_seed: int, round_idx: int) -> PyTree:
         rows = []
-        for i, size in enumerate(sizes):
+        for j, (i, size) in enumerate(zip(clients, sizes)):
             gen = torch.Generator(device=device)
             gen.manual_seed(fold_in(data_seed, round_idx, i))
             pos = torch.randint(0, size, (local_steps, local_batch),
                                 generator=gen, device=device)
-            rows.append(pools.index[i, pos])
+            rows.append(pools.index[j, pos])
         idx = torch.stack(rows)
         return {"x": x[idx], "y": y[idx]}
 
@@ -95,21 +111,24 @@ def vision_batcher(train_x: np.ndarray, train_y: np.ndarray,
 def token_batcher(tokens: np.ndarray, num_clients: int, local_steps: int,
                   local_batch: int,
                   extras: Optional[Dict[str, Tuple[int, ...]]] = None, *,
-                  device: Optional[torch.device] = None) -> BatchFn:
+                  device: Optional[torch.device] = None,
+                  clients: Optional[range] = None) -> BatchFn:
     """IID ``{"tokens"}`` batches of shape (N, K, B, S) gathered from the
     token set, copied to ``device`` once; client ``i`` of round ``r`` draws
     its (K, B) rows uniformly from a generator seeded with
     ``fold_in(data_seed, r, i)``. ``extras`` maps a batch key to a trailing
     shape, materialized as ``(N, K, B, *shape)`` f32 zeros (the
-    multimodal stubs)."""
+    multimodal stubs). ``clients`` (a rank's ``FLShardings.local_clients``)
+    draws those clients' rows only; by default all ``num_clients``."""
     device = torch.device("cpu") if device is None else torch.device(device)
     toks = torch.as_tensor(np.asarray(tokens), device=device)
     n = toks.shape[0]
     extras = dict(extras or {})
+    clients = range(num_clients) if clients is None else clients
 
     def batch_fn(data_seed: int, round_idx: int) -> PyTree:
         rows = []
-        for i in range(num_clients):
+        for i in clients:
             gen = torch.Generator(device=device)
             gen.manual_seed(fold_in(data_seed, round_idx, i))
             rows.append(torch.randint(0, n, (local_steps, local_batch),
@@ -117,7 +136,7 @@ def token_batcher(tokens: np.ndarray, num_clients: int, local_steps: int,
         batch = {"tokens": toks[torch.stack(rows)]}
         for name, shape in extras.items():
             batch[name] = torch.zeros(
-                (num_clients, local_steps, local_batch, *shape),
+                (len(clients), local_steps, local_batch, *shape),
                 dtype=torch.float32, device=device)
         return batch
 
@@ -164,23 +183,30 @@ class RoundEngine:
     """Drives a ``build_fl_round`` round function over engine-sampled
     batches. ``run`` fetches metrics once per eval block; ``run_loop`` is
     the per-round reference loop with two scalar syncs per round. Both run
-    the same rounds in the same order, so they agree bitwise."""
+    the same rounds in the same order, so they agree bitwise. With
+    ``shardings`` (the round built with ``client_parallel='shard_map'``)
+    the state holds this rank's EF rows."""
 
     def __init__(self, round_fn: RoundFn, batch_fn: BatchFn, *,
-                 seed: int = 0):
+                 seed: int = 0, shardings=None):
         self._data_seed = fold_in(seed, _DATA_FOLD)
         self._round_seed = fold_in(seed, _ROUND_FOLD)
         self._round_fn = round_fn
         self._batch_fn = batch_fn
+        self._shardings = shardings
         self.stats = EngineStats()
 
     def init_state(self, params: PyTree, num_clients: int,
                    strategy=None, *, staleness_max: int = 0) -> FLState:
         """``fl_init`` on a copy of ``params``, so the caller's tensors are
-        never the state's; pass ``staleness_max=run.staleness_max`` when
-        the round was built with staleness."""
-        return fl_init(tree_map(torch.clone, params), num_clients, strategy,
-                       staleness_max=staleness_max)
+        never the state's, placed by the engine's shardings when it has
+        them; pass ``staleness_max=run.staleness_max`` when the round was
+        built with staleness."""
+        state = fl_init(tree_map(torch.clone, params), num_clients, strategy,
+                        staleness_max=staleness_max)
+        if self._shardings is not None:
+            state = self._shardings.place_state(state)
+        return state
 
     def _round(self, state: FLState) -> Tuple[FLState, RoundMetrics]:
         batches = self._batch_fn(self._data_seed, state.round)

@@ -21,6 +21,20 @@ three phases, each parameterized by the ``RunConfig`` and the
      ``supports_fused_aggregate`` (3SFC) aggregates straight from the
      batched payloads (``strategy.server_aggregate``, one backward).
 
+Fan-out (``run.client_parallel``): ``'vmap'`` loops over all N clients in
+one process. ``'shard_map'`` (requires ``run.mesh``; ``repro_torch.fl.
+sharding``) runs on every rank of the mesh: the rank loops over its own
+block of clients only, reading and writing its EF rows (``state.ef`` holds
+just those, as ``FLShardings.place_state`` leaves it, and so does the
+batch tree), then ONE collective per round (``all_gather_rows``) gathers,
+in client order, every client's message, loss and cosine (and payload
+floats outside fused mode) — never the EF rows. The server phase then runs
+on every rank, the same code in the same order over the same gathered
+values as the single-process round, so the two agree bitwise. As in the
+reference (whose boundary is ``all_gather``-then-reduce, never a
+``psum``), the aggregate is never all-reduced: a reduction's combine order
+would differ from the single-process mean.
+
 Faults (``repro_torch.fl.faults``): with any fault knob set, or with a
 ``fault_schedule_fn``, the round reads the round's host ``FaultSchedule``.
 Every client still trains and encodes; the schedule picks each EF row (a
@@ -40,7 +54,10 @@ measured frame size (0 in float mode).
 Randomness: client ``i``'s encoder draws from a ``torch.Generator`` seeded
 with ``fold_in(key, i)``, where ``key`` is the round's integer seed; the
 round function's ``syn0`` argument replaces those draws with given initial
-``D_syn`` (leading axis N) — the seam the parity tests use.
+``D_syn`` (leading axis N) — the seam the parity tests use. The generator,
+``syn0``, the codec's frame header and the fault masks take the global
+client id; under ``'shard_map'`` the EF rows and the batch tree take the
+rank's local one.
 """
 from __future__ import annotations
 
@@ -55,6 +72,7 @@ from repro_torch.core import flat
 from repro_torch.core.strategy import CompressionStrategy
 from repro_torch.core.threesfc import SynData
 from repro_torch.fl import faults as faults_lib
+from repro_torch.fl import sharding as sharding_lib
 from repro_torch.fl.client import local_train
 from repro_torch.fl.server import aggregate, server_update
 
@@ -184,7 +202,8 @@ def build_fl_round(
     syn0=None)`` takes the (N, K, B, ...) batch tree, the round's integer
     seed, optional aggregation weights and an optional per-client initial
     ``SynData`` (leading axis N). It returns a fresh state: the input
-    state's tensors are not written.
+    state's tensors are not written. Under ``client_parallel='shard_map'``
+    the state's EF tree and the batch tree hold this rank's clients only.
     """
     cfg: FLConfig = run.fl
     fused = run.fused_decode
@@ -213,6 +232,11 @@ def build_fl_round(
         def encode(key_i, g, ef_i, params, cid, rnd):
             return step(key_i, g, ef_i, params)
     wire_bytes = float(codec.nbytes) if wired else 0.0
+    if run.client_parallel == "shard_map":
+        shardings = run.shardings()
+        clients = shardings.local_clients(N)
+    else:
+        shardings, clients = None, range(N)
 
     def schedule(round_idx: int) -> faults_lib.FaultSchedule:
         if fault_schedule_fn is not None:
@@ -260,6 +284,22 @@ def build_fl_round(
         inv = torch.where(den > 0, 1.0 / den, 0.0)
         return flat.tree_map(lambda x: x * inv, num), den, buf, buf_w
 
+    def stack_clients(msgs, losses, cos, floats):
+        """Every client's record, in client order, each field stacked on a
+        leading (N, ...) client axis: the messages (trees, or codec frames
+        as one (N, nbytes) array), the losses, cosines and payload floats.
+        Under shard_map one collective gathers them already stacked, and
+        the server phase takes them as they come. Fused mode has no use for
+        the clients' payload floats and leaves them out."""
+        if shardings is None:
+            return (msgs if wired else flat.tree_stack(msgs),
+                    torch.stack(losses), torch.stack(cos),
+                    None if fused else torch.stack(floats))
+        rows = [(m, l, c) if fused else (m, l, c, f)
+                for m, l, c, f in zip(msgs, losses, cos, floats)]
+        got = sharding_lib.all_gather_rows(rows, shardings.group)
+        return got[0], got[1], got[2], None if fused else got[3]
+
     def fl_round(state: FLState, client_batches: PyTree, key: int,
                  weights: Optional[torch.Tensor] = None,
                  syn0: Optional[SynData] = None
@@ -275,11 +315,19 @@ def build_fl_round(
             sched = schedule(state.round)
             part = sched.participate.tolist()
             deliv = sched.delivered.tolist()
+        if (shardings is not None
+                and flat.tree_leaves(state.ef)[0].shape[0] != len(clients)):
+            raise ValueError(
+                f"a shard_map round takes this rank's {len(clients)} EF "
+                f"rows (FLShardings.place_state), got "
+                f"{flat.tree_leaves(state.ef)[0].shape[0]}")
         new_ef = flat.tree_map(torch.empty_like, state.ef)
         msgs, losses, cos, floats = [], [], [], []
-        for i in range(N):
-            ef_i = flat.tree_map(lambda e: e[i], state.ef)
-            batches_i = flat.tree_map(lambda x: x[i], client_batches)
+        for j, i in enumerate(clients):
+            # i: the global client id; j: its row in this rank's EF rows
+            # and batch tree
+            ef_i = flat.tree_map(lambda e: e[j], state.ef)
+            batches_i = flat.tree_map(lambda x: x[j], client_batches)
             key_i = (SynData(*[t[i] for t in syn0]) if syn0 is not None
                      else client_generator(key, i, device))
             # every client trains and encodes, scheduled or not, as in the
@@ -293,11 +341,12 @@ def build_fl_round(
                 dropped = part[i] and strategy.cfg.error_feedback
                 ef_row = strategy._accumulate(g, ef_i) if dropped else ef_i
             # the new residual row goes straight into the (N, ...) tensors
-            flat.tree_map(lambda dst, src: dst[i].copy_(src), new_ef, ef_row)
+            flat.tree_map(lambda dst, src: dst[j].copy_(src), new_ef, ef_row)
             msgs.append(msg)
             losses.append(loss)
             cos.append(m.cosine)
             floats.append(m.payload_floats)
+        msgs, losses, cos, floats = stack_clients(msgs, losses, cos, floats)
         if faulted:
             # loss over participants only: mean × N/count, exactly 1.0 when
             # everyone participates
@@ -305,10 +354,10 @@ def build_fl_round(
                     for l, p in zip(losses, part)]
             loss = torch.mean(torch.stack(kept)) * _ratio(N, sum(part))
         else:
-            loss = torch.mean(torch.stack(losses))
+            loss = torch.mean(losses)
         # (N, ...) messages: payloads (fused) or reconstructions
         if not wired:
-            batch = flat.tree_stack(msgs)
+            batch = msgs
         elif fused:
             batch = codec.decode_batch(msgs)
         else:
@@ -329,7 +378,7 @@ def build_fl_round(
                 agg = strategy.server_aggregate(params, batch)
                 arrivals = float(N)
         else:
-            pf = torch.mean(torch.stack(floats))
+            pf = torch.mean(floats)
             if faulted:
                 agg, arrivals, buf, buf_w = faulted_aggregate(
                     state, batch, sched, weights, device)
@@ -339,7 +388,7 @@ def build_fl_round(
         new_params = server_update(params, agg, cfg.server_lr)
         rm = RoundMetrics(
             loss=loss,
-            cosine=torch.stack(cos),
+            cosine=cos,
             payload_floats=pf,
             update_norm=flat.tree_norm(agg),
             wire_bytes_up=wire_bytes,

@@ -29,6 +29,17 @@ a sequence, up to 8 slices of each local batch).
 It runs on the CUDA device unless ``--device cpu`` is given, and raises
 when no CUDA device is available and the CPU was not asked for.
 
+Client fan-out (``--client-parallel``, ``make_fanout``): ``shard_map``
+shares each round among the ranks of a job, one rank per device, each
+running its own block of clients (``repro_torch.fl.sharding``); ``auto``
+(the default) picks it when the job has more than one rank and the client
+count divides over them, else ``vmap``, the single-process loop. Launch a
+job with ``torchrun``; each rank uses ``cuda:LOCAL_RANK`` (NCCL), or the
+CPU with ``--device cpu`` (gloo), and only rank 0 writes the logs:
+
+    torchrun --nproc-per-node P -m repro_torch.launch.train \
+        --client-parallel shard_map --clients 8 --rounds 20
+
 Seeds: the training set (images or token sequences) is drawn from
 ``fold_in(seed, 0)``, the test set from ``fold_in(seed, 1)`` and the
 initial params from ``fold_in(seed, 2)``
@@ -44,6 +55,7 @@ import time
 from typing import Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import (ARCH_IDS, CompressorConfig,
                                      ModelConfig, get_smoke_config)
@@ -57,6 +69,8 @@ from repro_torch.fl.budget import matched_compressors
 from repro_torch.fl.engine import (RoundEngine, RunHistory, device_pools,
                                    token_batcher, vision_batcher)
 from repro_torch.fl.round import FLState, build_fl_round, fold_in
+from repro_torch.fl.sharding import make_fl_shardings
+from repro_torch.launch.mesh import make_host_mesh, process_rank, world_size
 from repro_torch.models.build import (build_model, syn_loss_fn, syn_spec_for,
                                       vision_syn_spec)
 from repro_torch.models.cnn import DATASETS, accuracy, make_paper_model
@@ -68,7 +82,9 @@ SMOKE_SEQ_LEN, SMOKE_NUM_SEQS = 64, 2048
 
 def resolve_device(name: str) -> torch.device:
     """The run's device. CUDA unless the caller asked for the CPU; raises
-    when CUDA was asked for (the default) and none is available."""
+    when CUDA was asked for (the default) and none is available. Under a
+    launcher that exports ``LOCAL_RANK``, ``cuda`` means that rank's
+    device, made current."""
     device = torch.device(name)
     if device.type == "cpu":
         return device
@@ -78,11 +94,81 @@ def resolve_device(name: str) -> torch.device:
         raise RuntimeError(
             "no CUDA device: torch.cuda.is_available() is false; pass "
             "--device cpu to run on the CPU")
+    if device.index is None and "LOCAL_RANK" in os.environ:
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+    if device.index is not None:
+        torch.cuda.set_device(device)
     # the reference computes in full f32: keep TF32 off for matrix products
     # and for cuDNN, whatever the process defaults are
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return device
+
+
+def make_fanout(args, device: torch.device):
+    """(client_parallel, mesh, shardings) from ``--client-parallel``.
+
+    'auto' picks the sharded fan-out when the job has more than one rank
+    and the client count divides evenly over them, else the single-process
+    loop. An explicit 'shard_map' fails loudly (one rank, or a client count
+    that does not divide) rather than silently degrading.
+    """
+    mode = args.client_parallel
+    n = world_size()
+    if mode == "auto":
+        mode = "shard_map" if n > 1 and args.clients % n == 0 else "vmap"
+    if mode == "vmap":
+        return "vmap", None, None
+    if n < 2:
+        raise ValueError(
+            "--client-parallel shard_map needs >1 device (a 1-shard "
+            "shard_map would be vmap with extra steps); this job has "
+            f"{n} rank — use 'vmap'/'auto' or launch ranks with "
+            "torchrun --nproc-per-node P")
+    mesh = make_host_mesh(device=device)
+    shardings = make_fl_shardings(mesh)
+    shardings.check_divisible(args.clients)
+    return "shard_map", mesh, shardings
+
+
+def _write_run_config(out_dir: str, record: dict) -> None:
+    """Log the run's configuration next to its metrics (rank 0 only)."""
+    if process_rank() != 0:
+        return
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "run_config.json"), "w") as f:
+        json.dump(record, f, indent=1)
+
+
+class _MetricsLog:
+    """``<out>/metrics.jsonl``, written and printed by rank 0 only."""
+
+    def __init__(self, out_dir: str):
+        self._f = None
+        if process_rank() == 0:
+            os.makedirs(out_dir, exist_ok=True)
+            self._f = open(os.path.join(out_dir, "metrics.jsonl"), "w")
+
+    @property
+    def writer(self) -> bool:
+        return self._f is not None
+
+    def write(self, rec: dict) -> None:
+        print(json.dumps(rec))
+        self._f.write(json.dumps(rec) + "\n")
+        self._f.flush()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if self._f is not None:
+            self._f.close()
+
+
+def _finish(state: FLState, shardings) -> FLState:
+    """The run's final state, with every client's EF row on every rank."""
+    return state if shardings is None else shardings.gather_state(state)
 
 
 def _generator(device: torch.device, seed: int) -> torch.Generator:
@@ -101,7 +187,9 @@ def train_vision(args) -> FLState:
     syn_spec = vision_syn_spec(spec, comp)
     strategy = make_strategy(comp, loss_fn=model.syn_loss, syn_spec=syn_spec,
                              local_lr=args.lr)
-    run = RunConfig.from_flags(args, compressor=comp)
+    mode, mesh, shardings = make_fanout(args, device)
+    run = RunConfig.from_flags(args, compressor=comp, client_parallel=mode,
+                               mesh=mesh)
     codec = strategy.wire_codec(params, policy=run.wire_policy) \
         if run.wire == "codec" else None
 
@@ -114,10 +202,15 @@ def train_vision(args) -> FLState:
     parts = dirichlet_partition(train.y, args.clients, alpha=args.alpha,
                                 seed=args.seed, min_per_client=args.batch)
     pools = device_pools(parts, device)
+    clients = None
+    if shardings is not None:
+        pools = shardings.place_pools(pools)
+        clients = shardings.local_clients(args.clients)
     engine = RoundEngine(
         build_fl_round(model.loss, strategy, run, codec=codec),
-        vision_batcher(train.x, train.y, pools, args.local_steps, args.batch),
-        seed=args.seed)
+        vision_batcher(train.x, train.y, pools, args.local_steps, args.batch,
+                       clients=clients),
+        seed=args.seed, shardings=shardings)
     state = engine.init_state(params, args.clients, strategy,
                               staleness_max=run.staleness_max)
     test_x = torch.as_tensor(test.x, device=device)
@@ -127,24 +220,22 @@ def train_vision(args) -> FLState:
         with torch.no_grad():
             return float(accuracy(model.apply(p, test_x), test_y))
 
-    os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "run_config.json"), "w") as f:
-        json.dump({**run.to_json(), "device": str(device)}, f, indent=1)
+    _write_run_config(args.out, {**run.to_json(), "device": str(device),
+                                 "world_size": world_size()})
     t0 = time.time()
-    with open(os.path.join(args.out, "metrics.jsonl"), "w") as log:
+    with _MetricsLog(args.out) as log:
         def on_eval(st, m, r):
-            rec = {"round": r, "loss": float(m.loss[-1]),
-                   "acc": eval_acc(st.params),
-                   "cos": float(m.cosine[-1].mean()),
-                   "payload_floats": float(m.payload_floats[-1]),
-                   "elapsed_s": round(time.time() - t0, 1)}
-            print(json.dumps(rec))
-            log.write(json.dumps(rec) + "\n")
-            log.flush()
+            if not log.writer:
+                return
+            log.write({"round": r, "loss": float(m.loss[-1]),
+                       "acc": eval_acc(st.params),
+                       "cos": float(m.cosine[-1].mean()),
+                       "payload_floats": float(m.payload_floats[-1]),
+                       "elapsed_s": round(time.time() - t0, 1)})
 
         state, _ = engine.run(state, args.rounds, eval_every=args.eval_every,
                               eval_fn=on_eval)
-    return state
+    return _finish(state, shardings)
 
 
 def num_micro_for(per_client: int, seq_len: int) -> int:
@@ -158,16 +249,19 @@ def num_micro_for(per_client: int, seq_len: int) -> int:
 
 
 def lm_setup(args, cfg: ModelConfig, comp: CompressorConfig,
-             seq_len: int) -> Tuple[LM, CompressionStrategy, RunConfig]:
+             seq_len: int, *, client_parallel: str = "vmap", mesh=None
+             ) -> Tuple[LM, CompressionStrategy, RunConfig]:
     """(model, strategy, run config) of an LM-family FL round: ``cfg``'s
     model, ``comp`` with the model's synthetic-data loss, the flags' FL
-    settings and the microbatch rule for ``args.batch`` sequences of
-    ``seq_len`` tokens."""
+    settings, the fan-out and the microbatch rule for ``args.batch``
+    sequences of ``seq_len`` tokens."""
     model = build_model(cfg)
     strategy = make_strategy(comp, loss_fn=syn_loss_fn(model),
                              syn_spec=syn_spec_for(cfg, comp),
                              local_lr=args.lr)
-    run = RunConfig.from_flags(args, compressor=comp).replace(
+    run = RunConfig.from_flags(args, compressor=comp,
+                               client_parallel=client_parallel,
+                               mesh=mesh).replace(
         num_micro=num_micro_for(args.batch, seq_len))
     return model, strategy, run
 
@@ -181,7 +275,9 @@ def train_lm(args, cfg: ModelConfig, comp: CompressorConfig, seq_len: int,
     reference's keys ``round``, ``loss``, ``cos``, ``params``, printed and
     written to ``<out>/metrics.jsonl``."""
     device = resolve_device(args.device)
-    model, strategy, run = lm_setup(args, cfg, comp, seq_len)
+    mode, mesh, shardings = make_fanout(args, device)
+    model, strategy, run = lm_setup(args, cfg, comp, seq_len,
+                                    client_parallel=mode, mesh=mesh)
     params = model.init(_generator(device, fold_in(args.seed, 2)))
     d = flat.tree_size(params)
     codec = strategy.wire_codec(params, policy=run.wire_policy) \
@@ -194,26 +290,26 @@ def train_lm(args, cfg: ModelConfig, comp: CompressorConfig, seq_len: int,
     engine = RoundEngine(
         build_fl_round(model.loss, strategy, run, codec=codec),
         token_batcher(data, args.clients, args.local_steps, args.batch,
-                      extras=extras, device=device),
-        seed=args.seed)
+                      extras=extras, device=device,
+                      clients=None if shardings is None
+                      else shardings.local_clients(args.clients)),
+        seed=args.seed, shardings=shardings)
     state = engine.init_state(params, args.clients, strategy,
                               staleness_max=run.staleness_max)
     del params                       # the state holds its own copy
 
-    os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "run_config.json"), "w") as f:
-        json.dump({**run.to_json(), "arch": cfg.name, "seq_len": seq_len,
-                   "device": str(device)}, f, indent=1)
-    with open(os.path.join(args.out, "metrics.jsonl"), "w") as log:
+    _write_run_config(args.out, {**run.to_json(), "arch": cfg.name,
+                                 "seq_len": seq_len, "device": str(device),
+                                 "world_size": world_size()})
+    with _MetricsLog(args.out) as log:
         def on_eval(st, m, r):
-            rec = {"round": r, "loss": float(m.loss[-1]),
-                   "cos": float(m.cosine[-1].mean()), "params": d}
-            print(json.dumps(rec))
-            log.write(json.dumps(rec) + "\n")
-            log.flush()
+            if log.writer:
+                log.write({"round": r, "loss": float(m.loss[-1]),
+                           "cos": float(m.cosine[-1].mean()), "params": d})
 
-        return engine.run(state, args.rounds, eval_every=args.eval_every,
-                          eval_fn=on_eval)
+        state, hist = engine.run(state, args.rounds,
+                                 eval_every=args.eval_every, eval_fn=on_eval)
+    return _finish(state, shardings), hist
 
 
 def train_lm_smoke(args) -> Tuple[FLState, RunHistory]:
@@ -273,6 +369,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--fault-seed", type=int, default=0, dest="fault_seed",
                     help="seed of the fault stream (schedules are a pure "
                          "function of (fault_seed, round))")
+    ap.add_argument("--client-parallel", default="auto",
+                    dest="client_parallel",
+                    choices=["auto", "vmap", "shard_map"],
+                    help="client fan-out: shard_map shares each round among "
+                         "the job's ranks (torchrun), vmap is the "
+                         "single-process loop; auto picks shard_map when "
+                         "there is more than one rank and --clients divides "
+                         "over them")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; the run raises when cuda is "
                          "asked for and no CUDA device is available")
@@ -281,9 +385,15 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> FLState:
     args = parse_args(argv)
-    if args.arch and args.smoke:
-        return train_lm_smoke(args)[0]
-    return train_vision(args)
+    owned = not dist.is_initialized()
+    try:
+        if args.arch and args.smoke:
+            return train_lm_smoke(args)[0]
+        return train_vision(args)
+    finally:
+        # a process group the fan-out started ends with the run
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

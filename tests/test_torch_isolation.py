@@ -3,6 +3,7 @@ imports JAX or anything of the reference package ``repro``; its entry
 point runs on the CUDA device unless the CPU is asked for; its kernel
 wrappers never fall back from a device tensor to the plain version."""
 import ast
+import glob
 import os
 import subprocess
 import sys
@@ -27,6 +28,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 def _port_files():
     out = [os.path.join(REPO, "chip_smoke.py"),
            os.path.join(REPO, "scripts", "torch_round_profile.py")]
+    # the port's examples, beside the reference's
+    out += glob.glob(os.path.join(REPO, "examples", "*_torch.py"))
     for dirpath, _, names in os.walk(PORT):
         out += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return sorted(out)
@@ -51,6 +54,8 @@ def _forbidden(mod: str) -> bool:
 def test_no_port_module_imports_jax_or_the_reference():
     files = _port_files()
     assert len(files) > 20
+    assert {"quickstart_torch.py", "compress_llm_update_torch.py"} <= {
+        os.path.basename(p) for p in files}
     bad = [(os.path.relpath(p, REPO), m) for p in files
            for m in _imported_modules(p) if _forbidden(m)]
     assert not bad, bad

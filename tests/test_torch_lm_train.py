@@ -119,6 +119,71 @@ def test_loss_and_every_gradient_match_reference(seq, chunk, mask,
     _assert_trees_close(grads, jgrads, **TOL)
 
 
+# the LM in bf16 (the published config's compute dtype) against its own
+# f32 result: each gap within BF16_FACTOR times the gap the reference's
+# bf16 run opens from the reference's f32 run on the same params and
+# tokens (a CPU probe: hidden state 0.95-0.99x, gradient leaves 0.36-1.54x
+# the reference's), and the hidden state's gap at least 1/BF16_FACTOR of
+# the reference's, so the bf16 config does compute in bf16. The loss's gap
+# (~1e-5: a mean over 126 positions that cancels) is held against the
+# larger of the two draws' reference gaps (probe: 5.8e-5 and 5.1e-5
+# against 1.4e-5 and 7.3e-5).
+BF16_FACTOR = 2.0
+BF16_SEQ = 64
+
+
+def _rel_l2(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+@functools.lru_cache(maxsize=None)
+def _dtype_gaps(seed):
+    """((loss, hidden, [gradient leaves]) gaps of bf16 from f32) for the
+    reference and for the port, on token draw ``seed``."""
+    jparams = _reference()[1]
+    tokens = _batch(BF16_SEQ, seed=seed)["tokens"]
+    runs = {}
+    for dt in ("float32", "bfloat16"):
+        jmodel = jbuild_model(jget_smoke_config("mamba2-370m").replace(
+            dtype=dt))
+        jloss, jgrads = jax.value_and_grad(jmodel.loss)(
+            jparams, {"tokens": jnp.asarray(tokens)})
+        jh = jmodel.forward_hidden(jparams, jnp.asarray(tokens))[0]
+        model = build_model(get_smoke_config("mamba2-370m").replace(
+            dtype=dt))
+        loss, grads = _port_value_and_grad(
+            model.loss, _port_params(), {"tokens": torch.from_numpy(tokens)})
+        with torch.no_grad():
+            h = model.forward_hidden(_port_params(),
+                                     torch.from_numpy(tokens))[0]
+        runs[dt] = (
+            (float(jloss), np.asarray(jh.astype(jnp.float32)),
+             [np.asarray(g) for g in jax.tree.leaves(jgrads)]),
+            (float(loss), h.float().numpy(),
+             [g.float().numpy() for g in tree_leaves(grads)]))
+
+    def gaps(side):
+        (l32, h32, g32), (l16, h16, g16) = (runs["float32"][side],
+                                            runs["bfloat16"][side])
+        return (abs(l16 - l32) / abs(l32), _rel_l2(h16, h32),
+                [_rel_l2(a, b) for a, b in zip(g16, g32)])
+
+    return gaps(0), gaps(1)
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_bf16_lm_tracks_f32_within_the_reference_gap(seed):
+    ref, port = _dtype_gaps(seed)
+    assert ref[1] / BF16_FACTOR <= port[1] <= BF16_FACTOR * ref[1], \
+        (port[1], ref[1])
+    assert len(port[2]) == len(ref[2]) == 11
+    for i, (p, r) in enumerate(zip(port[2], ref[2])):
+        assert p <= BF16_FACTOR * r, f"gradient leaf {i}: {p:.3e} vs {r:.3e}"
+    ref_loss = max(_dtype_gaps(s)[0][0] for s in (1, 2))
+    assert port[0] <= BF16_FACTOR * ref_loss, (port[0], ref_loss)
+
+
 def test_loss_masks_out_prefix_embeddings():
     """Prefix embeddings run through the trunk and stay out of the CE."""
     jmodel, jparams = _reference()

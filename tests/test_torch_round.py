@@ -37,6 +37,7 @@ from repro_torch.core.strategy import make_strategy
 from repro_torch.core.threesfc import SynData
 from repro_torch.core import flat
 from repro_torch.data.partition import dirichlet_partition
+from repro_torch.data.synthetic import make_class_image_dataset
 from repro_torch.fl import client
 from repro_torch.fl.engine import RoundEngine, device_pools, vision_batcher
 from repro_torch.fl.round import build_fl_round, fl_init
@@ -329,9 +330,14 @@ def test_engine_batches_are_a_function_of_seed_round_client():
 
 def test_runconfig_validation():
     fl = FLConfig()
-    for kw in ({"client_parallel": "shard_map"}, {"transport": "socket"}):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            RunConfig(fl=fl, **kw)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        RunConfig(fl=fl, transport="socket")
+    # the shard_map fan-out is ported: it needs a mesh
+    # (tests/test_torch_sharding.py holds it on real meshes)
+    with pytest.raises(ValueError, match="explicit mesh"):
+        RunConfig(fl=fl, client_parallel="shard_map")
+    assert RunConfig(fl=fl).client_axes() is None
+    assert "mesh" not in RunConfig(fl=fl).to_json()
     # the fault knobs are ported: accepted, and they switch faults on
     for kw in ({"drop_rate": 0.1}, {"participation_rate": 0.5},
                {"straggler_rate": 0.5, "staleness_max": 2},
@@ -373,3 +379,73 @@ def test_trainer_writes_reference_metric_keys(tmp_path):
         assert r["payload_floats"] == 795.0
     cfg = json.load(open(os.path.join(out, "run_config.json")))
     assert cfg["device"] == "cpu" and cfg["fl"]["num_clients"] == 3
+
+
+def _port_round(kind, n, fused=False, **comp_kw):
+    comp = CompressorConfig(kind=kind, **comp_kw)
+    tmodel = make_mlp(MNIST_SPEC)
+    strat = make_strategy(comp, loss_fn=tmodel.syn_loss,
+                          syn_spec=vision_syn_spec(MNIST_SPEC, comp),
+                          local_lr=LR)
+    rf = build_fl_round(tmodel.loss, strat, RunConfig(
+        fl=FLConfig(num_clients=n, local_steps=K, local_lr=LR,
+                    compressor=comp), fused_decode=fused))
+    return rf, strat
+
+
+@pytest.mark.parametrize("kind", ["identity", "topk", "signsgd", "threesfc"])
+def test_rounds_reduce_loss(world, kind):
+    """Mirror of tests/test_fl_round.py: 6 rounds on the same batches take
+    the mean local loss down."""
+    rf, strat = _port_round(kind, N, keep_ratio=0.05, syn_steps=5,
+                            error_feedback=kind != "identity")
+    state = fl_init(world["tparams"], N, strat)
+    losses = []
+    for r in range(6):
+        state, m = rf(state, world["tbatches"], 3 + r)
+        losses.append(float(m.loss))
+    assert losses[-1] < losses[0], f"{kind}: loss did not drop: {losses}"
+
+
+def test_fused_round_trains(world):
+    """Mirror of tests/test_fused_decode.py: fused 3SFC (N=3, K=2, B=16, 5
+    encoder steps) over 6 rounds of fresh batches takes the loss down, from
+    the reference test's params and dataset. (Six noisy rounds are a weak
+    signal: on the dataset the port's generator draws, the reference's own
+    fused round does not take the loss down either.)"""
+    n, k, b = 3, 2, 16
+    ds = jdataset(jax.random.PRNGKey(1), 400, (28, 28, 1), 10)
+    ds = type(ds)(np.asarray(ds.x), np.asarray(ds.y), ds.num_classes)
+    params = world["tparams"]
+    comp = CompressorConfig(kind="threesfc", syn_steps=5, syn_lr=0.1)
+    tmodel = make_mlp(MNIST_SPEC)
+    strat = make_strategy(comp, loss_fn=tmodel.syn_loss,
+                          syn_spec=vision_syn_spec(MNIST_SPEC, comp))
+    rf = build_fl_round(tmodel.loss, strat, RunConfig(
+        fl=FLConfig(num_clients=n, local_steps=k, local_lr=0.05,
+                    compressor=comp), fused_decode=True))
+    state = fl_init(params, n, strat)
+    rng = np.random.default_rng(1)
+    losses = []
+    for r in range(6):
+        bx = np.stack([ds.x[rng.choice(400, (k, b))] for _ in range(n)])
+        by = np.stack([ds.y[rng.choice(400, (k, b))] for _ in range(n)])
+        state, m = rf(state, {"x": torch.from_numpy(bx),
+                              "y": torch.from_numpy(by).long()}, 3 + r)
+        losses.append(float(m.loss))
+    assert losses[-1] < losses[0], losses
+
+
+def test_class_image_dataset_learnable_structure():
+    """Mirror of tests/test_misc_substrate.py: train and test splits drawn
+    from different generators share their class templates, so per-class
+    means correlate across them."""
+    tr = make_class_image_dataset(torch.Generator().manual_seed(0), 500,
+                                  (8, 8, 1), 5)
+    te = make_class_image_dataset(torch.Generator().manual_seed(9), 200,
+                                  (8, 8, 1), 5)
+    for c in range(5):
+        m_tr = tr.x[tr.y == c].mean(0).ravel()
+        m_te = te.x[te.y == c].mean(0).ravel()
+        r = np.corrcoef(m_tr, m_te)[0, 1]
+        assert r > 0.8, f"class {c}: templates differ across splits (r={r})"

@@ -165,6 +165,53 @@ def test_ssd_scan_matches_reference(shape, chunk, with_h0):
     np.testing.assert_allclose(f.numpy(), np.asarray(jf), **SCAN_TOL)
 
 
+def test_ssd_scan_matches_step_recurrence():
+    """Mirror of tests/test_model_math.py: the chunked SSD equals the
+    token-by-token linear recurrence h_t = exp(dA_t)·h_{t-1} + B_t⊗xdt_t,
+    y_t = h_t·C_t (ground truth), at the reference's shapes and
+    distributions and its SCAN_TOL (a CPU probe measured 2.4e-7)."""
+    b, s, h, p, n = 2, 24, 3, 8, 4
+    rng = np.random.default_rng(0)
+    f = np.float32
+    xdt = torch.from_numpy((0.2 * rng.standard_normal((b, s, h, p))).astype(f))
+    dA = torch.from_numpy((-0.3 * _softplus(rng.standard_normal((b, s, h))))
+                          .astype(f))
+    B = torch.from_numpy((0.7 * rng.standard_normal((b, s, n))).astype(f))
+    C = torch.from_numpy((0.7 * rng.standard_normal((b, s, n))).astype(f))
+    y_scan, final = ssm.ssd_scan(xdt, dA, B, C, chunk=8)
+    hstate = torch.zeros((b, h, p, n))
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dA[:, t])[:, :, None, None]
+        dBx = torch.einsum("bn,bhp->bhpn", B[:, t], xdt[:, t])
+        hstate = decay * hstate + dBx
+        ys.append(torch.einsum("bhpn,bn->bhp", hstate, C[:, t]))
+    y_ref = torch.stack(ys, dim=1)
+    np.testing.assert_allclose(y_scan.numpy(), y_ref.numpy(), **SCAN_TOL)
+    np.testing.assert_allclose(final.numpy(), hstate.numpy(), **SCAN_TOL)
+
+
+def test_ssd_scan_chunk_invariance():
+    """Mirror of tests/test_model_math.py: the result does not depend on the
+    chunk size, a chunk that does not divide the sequence included
+    (SCAN_TOL; a CPU probe measured 3.6e-7 across chunks 4, 7, 20)."""
+    b, s, h, p, n = 1, 20, 2, 4, 4
+    rng = np.random.default_rng(4)
+    f = np.float32
+    xdt = torch.from_numpy((0.2 * rng.standard_normal((b, s, h, p))).astype(f))
+    dA = torch.from_numpy((-0.2 * _softplus(rng.standard_normal((b, s, h))))
+                          .astype(f))
+    B = torch.from_numpy(rng.standard_normal((b, s, n)).astype(f))
+    C = torch.from_numpy(rng.standard_normal((b, s, n)).astype(f))
+    y4, f4 = ssm.ssd_scan(xdt, dA, B, C, chunk=4)
+    y7, f7 = ssm.ssd_scan(xdt, dA, B, C, chunk=7)    # 20 % 7 != 0
+    y20, f20 = ssm.ssd_scan(xdt, dA, B, C, chunk=20)
+    np.testing.assert_allclose(y4.numpy(), y7.numpy(), **SCAN_TOL)
+    np.testing.assert_allclose(y4.numpy(), y20.numpy(), **SCAN_TOL)
+    np.testing.assert_allclose(f4.numpy(), f7.numpy(), **SCAN_TOL)
+    np.testing.assert_allclose(f4.numpy(), f20.numpy(), **SCAN_TOL)
+
+
 def test_ssd_chunked_rejects_an_indivisible_sequence():
     xdt, dA, B, C, _ = map(_t, _seq_inputs(4, 1, 13, 2, 8, 4))
     with pytest.raises(ValueError, match="divide"):

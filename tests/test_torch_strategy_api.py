@@ -8,8 +8,9 @@ built-in ones. The toy method runs a full float-mode round, held to the
 reference's round of the same method on the same params and batches, and
 a codec-mode round, which decodes its frames through
 ``Codec.decode_batch``'s default path (frame by frame) and must be bitwise
-the float-mode round. The reference's shard_map case is not mirrored: it
-fails on the reference (ROADMAP Queue C).
+the float-mode round; and on 2 gloo ranks the sharded codec round, which
+must be bitwise the single-process float round (the reference's own
+shard_map case fails on the reference, ROADMAP Queue C).
 """
 import jax
 import jax.numpy as jnp
@@ -25,8 +26,7 @@ from repro.fl.round import build_fl_round as jbuild_fl_round
 from repro.fl.round import fl_init as jfl_init
 from repro.models.cnn import VisionSpec as JVisionSpec
 from repro.models.cnn import make_paper_model as jmake_paper_model
-from repro_torch.comm import CODECS, Codec, frame, register_codec
-from repro_torch.comm.codec import array_to_bytes, bytes_to_array
+from repro_torch.comm import Codec
 from repro_torch.configs.base import CompressorConfig, FLConfig
 from repro_torch.configs.run import RunConfig
 from repro_torch.convert import params_from_numpy, to_numpy
@@ -35,10 +35,13 @@ from repro_torch.core import strategy as S
 from repro_torch.fl.round import build_fl_round, fl_init
 from repro_torch.models.cnn import VisionSpec, make_paper_model
 
+from _torch_fanout import assert_check, run_ranks
+from _torch_toy import (TOY_KIND, ToyCodec, ToyMeanSign, register_toy,
+                        unregister_toy)
+
 torch.set_num_threads(2)
 
 CPU = torch.device("cpu")
-TOY_KIND = "toy_meansign"
 # the reference's toy, registered on the reference under a kind of its own
 # (its tests register TOY_KIND there when they are imported)
 J_TOY_KIND = "toy_meansign_port_parity"
@@ -46,48 +49,6 @@ N, K, B = 4, 2, 8
 # the port's round against the reference's (tests/test_torch_round.py)
 PARAM_TOL = dict(rtol=1e-4, atol=1e-6)
 EF_TOL = dict(rtol=1e-4, atol=1e-5)
-
-
-class ToyMeanSign(S.CompressionStrategy):
-    """Per-leaf mean-|x| scale times sign — a 10-line custom method."""
-
-    def payload_floats(self, params):
-        leaves = flat.tree_leaves(params)
-        return sum(l.numel() for l in leaves) / 32.0 + len(leaves)
-
-    def client_encode(self, key, u, params):
-        recon = flat.tree_map(lambda l: torch.mean(torch.abs(l))
-                              * torch.sign(l), u)
-        return S.TreeCompressed(
-            recon, torch.tensor(self.payload_floats(params)),
-            torch.tensor(0.0), wire=recon)
-
-    def server_decode(self, payload, params):
-        return payload
-
-
-class ToyCodec(Codec):
-    """Trivial lossless codec: the recon tree as one raw f32 stream."""
-
-    kind = TOY_KIND
-
-    def _section_bytes(self):
-        return (4 * self.d,)
-
-    def _pack(self, wire):
-        return [torch.cat([array_to_bytes(l)
-                           for l in flat.tree_leaves(wire)])]
-
-    def _unpack(self, sections):
-        vec = bytes_to_array(sections[0], (self.d,))
-        leaves, off = [], 0
-        for shape, n in zip(self.shapes, self.sizes):
-            leaves.append(vec[off:off + n].reshape(shape))
-            off += n
-        return self._leaf_tree(leaves)
-
-    def canonical(self, wire):
-        return flat.tree_map(lambda l: l.to(torch.float32), wire)
 
 
 class JToyMeanSign(JS.CompressionStrategy):
@@ -112,14 +73,12 @@ class JToyMeanSign(JS.CompressionStrategy):
 def toy():
     """The toy method and codec registered on the port (and the method on
     the reference) for one test."""
-    S.register_strategy(TOY_KIND)(ToyMeanSign)
-    register_codec(ToyCodec)
+    register_toy()
     JS.register_strategy(J_TOY_KIND)(JToyMeanSign)
     try:
         yield
     finally:
-        del S.STRATEGIES[TOY_KIND], CODECS[TOY_KIND]
-        del frame.KIND_NAMES[frame.KIND_IDS.pop(TOY_KIND)]
+        unregister_toy()
         del JS.STRATEGIES[J_TOY_KIND]
 
 
@@ -200,3 +159,35 @@ def test_toy_strategy_wire_codec_matches_float(toy):
         assert torch.equal(getattr(mf, f), getattr(mw, f))
     assert float(mw.wire_bytes_up) == codec.nbytes
     assert float(mf.wire_bytes_up) == 0.0
+
+
+@pytest.mark.transport(timeout=300)
+def test_toy_strategy_shard_map_codec(tmp_path):
+    """The toy method (registered in each rank) over the sharded fan-out in
+    wire mode on 2 ranks: bitwise the single-process float round, its
+    codec being lossless."""
+    assert_check(run_ranks("toy", 2, tmp_path, timeout=240),
+                 "toy_strategy_shard_map_codec")
+
+
+def test_duplicate_strategy_kind_rejected(toy):
+    with pytest.raises(ValueError, match="already registered"):
+        @S.register_strategy(TOY_KIND)
+        class Dupe(S.CompressionStrategy):
+            pass
+    # the original registration is untouched
+    assert S.STRATEGIES[TOY_KIND] is ToyMeanSign
+
+
+def test_unknown_kind_lists_valid_names(toy):
+    with pytest.raises(ValueError) as ei:
+        S.make_strategy(CompressorConfig(kind="definitely_not_a_kind"))
+    msg = str(ei.value)
+    for known in ("threesfc", "topk", TOY_KIND):
+        assert known in msg, msg
+
+
+def test_strategy_kinds_introspection(toy):
+    kinds = S.strategy_kinds()
+    assert kinds == sorted(kinds)
+    assert TOY_KIND in kinds and "threesfc" in kinds
