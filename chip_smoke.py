@@ -157,10 +157,38 @@ Phases, in order; any failure exits non-zero:
              the bytes each client puts into the gather, float against
              fused 3SFC.
 
+18. host layers — the socket transport (``repro_torch.comm.transport``,
+             ``fl.engine.LiveRoundLoop``) with N = 10 worker processes
+             (``repro_torch.launch.worker``) spawned on this card, the
+             server in this process, on the main path's settings with
+             ``--wire codec``: (a) 3 live 3SFC rounds, in turns with the
+             in-process codec round, params and every client's EF
+             (``request_ef``) bitwise phase 6's 3SFC codec run, every
+             frame delivered, 10 x 3,220 B up a round; (c) with (a)'s
+             server and workers, client 3 SIGKILLed, rounds 3-4 without it
+             (recorded dead and undelivered), its replacement re-synced
+             bitwise to the banked commit of round 2, round 5 delivered,
+             then params and every EF bitwise the in-process codec run of
+             6 rounds in which client 3 sits out rounds 3-4; at STOP each
+             worker's logged launches: 66 B1 and 6 B2 for the 9 that ran
+             throughout, 11 and 1 for the replacement, none in the server;
+             (b) 3 live signSGD codec rounds, bitwise phase 6's run, 3 B3a
+             and 3 B1 a worker, 3 B3b in the server; (d) the trainer with
+             ``--ckpt-every 2`` for 4 rounds against 2 rounds and
+             ``--resume`` to 4, in-process and over the socket (every
+             resumed worker re-synced from the checkpointed bank): params
+             and every EF bitwise; (e) the 4-round socket run of (d) with
+             ``--trace`` and ``--metrics-port``: /healthz and /metrics
+             during the run, then ``scripts/trace_report.py`` as a
+             subprocess: every round phase present, the trace's bytes
+             exactly the ledger's. It prints a live round's wall beside the
+             in-process round's, the workers' boot times, the bytes per
+             round and its own wall.
+
 Phase 7 adds the full-width mamba2 round's profile and B1, B2 (with
 ``torch.addcmul`` beside), B3a and B3b at mamba2's d, and the wall time of
 a main-path round under phase 17 (a) beside the single-process round, in
-turns. The phases run in the order 1-6, 8-17, 7, so that the times can
+turns. The phases run in the order 1-6, 8-18, 7, so that the times can
 report each kernel's launches on its path. The last lines are the run's
 wall time from the script's start, the card's name and power limit, one
 JSON object with every kernel's numbers, the list of kernels, and
@@ -174,10 +202,14 @@ import itertools
 import json
 import math
 import os
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 
 # the whole run's wall clock starts here, before torch is imported
 _T0 = time.perf_counter()
@@ -189,6 +221,8 @@ import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
 from repro_torch.comm import Codec, frame  # noqa: E402
+from repro_torch.comm.transport import (SocketServer,  # noqa: E402
+                                        spawn_local_workers)
 from repro_torch.configs.base import (CompressorConfig, FLConfig,  # noqa: E402
                                      get_config)
 from repro_torch.configs.run import RunConfig  # noqa: E402
@@ -203,7 +237,9 @@ from repro_torch.data.synthetic import make_token_dataset  # noqa: E402
 from repro_torch.fl.budget import matched_compressors  # noqa: E402
 from repro_torch.fl.client import local_train  # noqa: E402
 from repro_torch.fl import faults  # noqa: E402
-from repro_torch.fl.engine import token_batcher  # noqa: E402
+from repro_torch.fl.engine import (LiveRoundLoop, RetryPolicy,  # noqa: E402
+                                   RoundEngine, token_batcher,
+                                   vision_batcher)
 from repro_torch.fl.round import FLState, build_fl_round, fl_init  # noqa: E402
 from repro_torch.fl import sharding as sharding_mod  # noqa: E402
 from repro_torch.fl.sharding import make_fl_shardings  # noqa: E402
@@ -218,6 +254,8 @@ from repro_torch.kernels import topk_mask as tm_mod  # noqa: E402
 from repro_torch.kernels.ftz import FLT_MIN, flush_subnormal  # noqa: E402
 from repro_torch.launch import ranks as ranks_mod  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.launch.worker import (launch_counts,  # noqa: E402
+                                       vision_setup)
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models.build import (build_model, syn_loss_fn,  # noqa: E402
@@ -332,6 +370,15 @@ LM_NUDGE = 1e-6
 # the walls phase 7 takes of a round under (a) and single-process, in turns
 FANOUT_ROUNDS, FANOUT_WORLD, FANOUT_TIMEOUT_S = 3, 2, 300
 FANOUT_WALLS = 3
+# phase 18: live rounds of (a) and (b), the client (c) kills and the rounds
+# it misses, the trainer runs of (d), the warm-up window of a first round
+# and the most the workers may take to connect
+LIVE_ROUNDS = 3
+KILL_CID, OUTAGE = 3, (3, 4)
+RESUME_ROUNDS, RESUME_CUT, RESUME_EVERY = 4, 2, 2
+LIVE_BOOT_S = 240.0
+LIVE_WARM = RetryPolicy(max_retries=0, recv_timeout_s=LIVE_BOOT_S,
+                        max_timeout_s=LIVE_BOOT_S)
 # B1-B3 at mamba2's d in CUDA graphs: calls per graph and replays
 LM_TIME_REPS, LM_TIME_REPLAYS = 10, 11
 # vectors of 4 Mi + 5 elements the B5/B6 timing rotates over: 6 x 16.8 MB
@@ -354,9 +401,7 @@ def reset_counts() -> None:
 
 
 def counts() -> dict:
-    return {"fused_cosine": fc_mod.LAUNCHES, "ef_update": ef_mod.LAUNCHES,
-            **bp_mod.LAUNCHES, "ssd_chunk": ssd_mod.LAUNCHES,
-            "sign_quant": sq_mod.LAUNCHES, "topk_mask": tm_mod.LAUNCHES}
+    return launch_counts()
 
 
 def only(**launches) -> dict:
@@ -747,7 +792,9 @@ def run_trainer(out_dir: str, compressor: str, wire: str, *,
     if len(rows) != rounds:
         raise AssertionError(f"expected {rounds} metrics rows, got {rows}")
     for r in rows:
-        if not (math.isfinite(r["loss"]) and math.isfinite(r["cos"])):
+        # socket rows carry the workers' mean loss and no cosine
+        if r.get("loss") is None or not all(
+                math.isfinite(r[k]) for k in ("loss", "cos") if k in r):
             raise AssertionError(f"non-finite metrics: {r}")
     return state, launched, wall
 
@@ -865,7 +912,7 @@ def phase_codec_path(out_dir: str, float_state: FLState, batches):
           f"{bitwise}")
     assert_close("threesfc codec vs float params", sfc_state.params,
                  float_state.params, PARAM_TOL)
-    return sign_state, launched
+    return sign_state, launched, sfc_state
 
 
 def frame_by_frame(codec):
@@ -2839,6 +2886,449 @@ def sign_codec_round(state: FLState, by_frame: bool = False):
     return build_fl_round(model.loss, strategy, run,
                           codec=frame_by_frame(codec) if by_frame else codec)
 
+# ---------------------------------------------------------------------------
+# phase 18: the host layers on the card
+# ---------------------------------------------------------------------------
+
+
+def live_world(compressor: str, dev):
+    """The trainer's main path for ``compressor`` with the codec wire over
+    the socket transport, built as ``train.train_vision`` builds it:
+    (args, spec, run, model, params, strategy, codec)."""
+    args = train.parse_args([
+        "--compressor", compressor, "--wire", "codec", "--transport",
+        "socket", "--clients", str(N), "--local-steps", str(K), "--batch",
+        str(B), "--rounds", str(LIVE_ROUNDS), "--device", "cuda"])
+    spec = DATASETS[args.dataset]
+    model, params = train.vision_model(args.model, spec, args.seed, dev)
+    comp = matched_compressors(args.model, spec,
+                               flat.tree_size(params))[compressor]
+    run = RunConfig.from_flags(args, compressor=comp)
+    strategy = train.vision_strategy(model, spec, run.fl)
+    codec = strategy.wire_codec(params, policy=run.wire_policy)
+    return args, spec, run, model, params, strategy, codec
+
+
+def inproc_codec_engine(world, dev, schedule_fn=None):
+    """The in-process codec round of ``world`` (the trainer's): its engine
+    and a fresh state; ``schedule_fn`` switches in the masked round."""
+    args, spec, run, model, params, strategy, codec = world
+    train_set, pools = train.vision_data(spec, run.fl, args.train_size, dev)
+    engine = RoundEngine(
+        build_fl_round(model.loss, strategy, RunConfig(fl=run.fl,
+                                                       wire="codec"),
+                       codec=codec, fault_schedule_fn=schedule_fn),
+        vision_batcher(train_set.x, train_set.y, pools, K, B),
+        seed=args.seed)
+    return engine, engine.init_state(params, N, strategy)
+
+
+def start_workers(world, log_dir: str):
+    """A ``SocketServer`` in this process and N workers spawned on the card,
+    set up: (server, processes, seconds from the spawn until all N had
+    connected)."""
+    args, spec, run = world[:3]
+    server = SocketServer(N, heartbeat_s=run.heartbeat_s,
+                          liveness_timeout_s=run.liveness_timeout_s)
+    t0 = time.perf_counter()
+    procs = spawn_local_workers(server.address, range(N), device="cuda",
+                                log_dir=log_dir)
+    try:
+        server.wait_ready(LIVE_BOOT_S)
+        connect_s = time.perf_counter() - t0
+        server.send_setup(vision_setup(run, model=args.model, spec=spec,
+                                       train_size=args.train_size,
+                                       device="cuda"))
+    except BaseException:
+        stop_workers(server, procs)
+        raise
+    return server, procs, connect_s
+
+
+def stop_workers(server, procs) -> None:
+    """STOP every worker (each logs its launches) and reap every process."""
+    server.stop()
+    for p in procs:
+        try:
+            p.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+
+
+def worker_log(log_dir: str, cid: int) -> str:
+    with open(os.path.join(log_dir, f"worker-{cid}.log")) as f:
+        return f.read()
+
+
+def worker_launches(log_dir: str, cid: int) -> dict:
+    """The launch counts worker ``cid``'s last process logged at STOP."""
+    lines = [l for l in worker_log(log_dir, cid).splitlines()
+             if "stop received; launches " in l]
+    if not lines:
+        raise AssertionError(f"worker {cid} logged no launches at STOP:\n"
+                             f"{worker_log(log_dir, cid)[-2000:]}")
+    return json.loads(lines[-1].split("launches ", 1)[1])
+
+
+def worker_rebuild_s(log_dir: str, cid: int) -> list:
+    return [float(l.split("rebuilt in ", 1)[1].split("s", 1)[0])
+            for l in worker_log(log_dir, cid).splitlines()
+            if "computation rebuilt in " in l]
+
+
+def live_efs(server) -> list:
+    efs = [server.request_ef(i, timeout=120) for i in range(N)]
+    if any(e is None for e in efs):
+        raise AssertionError(f"EF dump missing from workers "
+                             f"{[i for i, e in enumerate(efs) if e is None]}")
+    return efs
+
+
+def ef_rows(ef) -> list:
+    return [torch.cat([l[i].reshape(-1) for l in flat.tree_leaves(ef)])
+            .cpu().numpy() for i in range(N)]
+
+
+def check_live_bitwise(label: str, params, efs, want: FLState) -> None:
+    """Params and every client's EF bitwise ``want``'s, or the gap."""
+    pairs = list(zip(flat.tree_leaves(params), flat.tree_leaves(want.params)))
+    p_ok = all(same_bits(a, b) for a, b in pairs)
+    want_rows = ef_rows(want.ef)
+    e_ok = [np.array_equal(e.view(np.uint32), w.view(np.uint32))
+            for e, w in zip(efs, want_rows)]
+    if not (p_ok and all(e_ok)):
+        gap = max(float((a.double() - b.double()).abs().max())
+                  for a, b in pairs)
+        egap = max(float(np.abs(e.astype(np.float64) - w).max())
+                   for e, w in zip(efs, want_rows))
+        raise AssertionError(
+            f"{label}: not bitwise (params max |diff| {gap:.3e}, EF max "
+            f"|diff| {egap:.3e}, clients whose EF differs "
+            f"{[i for i, ok in enumerate(e_ok) if not ok]})")
+    print(f"  {label}: params and all {N} clients' EF bitwise: True")
+
+
+def check_delivered(label: str, recs, codec) -> None:
+    for rec in recs:
+        if not rec["delivered"].all() or rec["bytes_up"] != N * codec.nbytes:
+            raise AssertionError(
+                f"{label} round {rec['round']}: delivered "
+                f"{rec['delivered'].tolist()}, bytes up {rec['bytes_up']} "
+                f"(want {N} x {codec.nbytes})")
+
+
+def round_bytes(recs) -> list:
+    return [{k: int(rec[k]) for k in ("bytes_up", "bytes_down",
+                                      "overhead_up", "overhead_down")}
+            for rec in recs]
+
+
+def outage_schedule(r: int, n: int) -> faults.FaultSchedule:
+    """Phase 18 (c)'s in-process mirror: client KILL_CID sits the OUTAGE
+    rounds out (its EF frozen), everyone else is healthy."""
+    sched = faults.null_schedule(n)
+    if r in OUTAGE:
+        part = sched.participate.clone()
+        part[KILL_CID] = False
+        sched = sched._replace(participate=part)
+    return sched
+
+
+def wall_ms(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def live_threesfc(sfc_state: FLState, dev, out_dir: str) -> dict:
+    """(a) and (c): LIVE_ROUNDS 3SFC rounds over N workers, in turns with
+    the in-process codec round, then the kill, the outage and the
+    rejoin."""
+    world = live_world("threesfc", dev)
+    args, spec, run, model, params, strategy, codec = world
+    log_dir = os.path.join(out_dir, "live_threesfc")
+    engine, st = inproc_codec_engine(world, dev)
+    server, procs, connect_s = start_workers(world, log_dir)
+    rejoin, served = [], {k: 0 for k in counts()}
+    loop = LiveRoundLoop(server, strategy, codec, run, params)
+
+    def live(n, **kw):
+        reset_counts()
+        loop.run(n, **kw)
+        for k, v in counts().items():
+            served[k] += v
+
+    out = {"connect_s": connect_s}
+    try:
+        # round 0 warms every worker up, then the in-process round warms
+        live(1, deadline_s=LIVE_BOOT_S, policy=LIVE_WARM)
+        st, _ = engine.run_block(st, 1)
+        inproc_ms = []
+        for _ in range(LIVE_ROUNDS - 1):
+            live(1)
+
+            def step():
+                nonlocal st
+                st, _ = engine.run_block(st, 1)
+            inproc_ms.append(wall_ms(step))
+        live_ms = [rec["wall_s"] * 1e3 for rec in loop.history]
+        check_live_bitwise("(a) the in-process rounds timed in turns vs "
+                           "phase 6's codec run", st.params, ef_rows(st.ef),
+                           sfc_state)
+        check_live_bitwise(f"(a) {LIVE_ROUNDS} live 3SFC rounds vs phase 6's "
+                           f"in-process codec run", loop.params,
+                           live_efs(server), sfc_state)
+        check_delivered("(a)", loop.history, codec)
+        out.update(live_ms=live_ms, inproc_ms=inproc_ms,
+                   bytes=round_bytes(loop.history))
+        # (c) the kill, the outage, the rejoin
+        if not server.wait_ef_bank(LIVE_ROUNDS - 1, range(N), timeout=60):
+            raise AssertionError("(c) the EF bank did not settle")
+        banked = server.ef_bank()
+        procs[KILL_CID].send_signal(signal.SIGKILL)
+        procs[KILL_CID].wait()
+        end = time.monotonic() + 30
+        while KILL_CID in server.live_workers():
+            if time.monotonic() > end:
+                raise AssertionError("(c) the server never saw the death")
+            time.sleep(0.05)
+        live(len(OUTAGE))
+        recs = {rec["round"]: rec for rec in loop.history}
+        for r in OUTAGE:
+            rec = recs[r]
+            others = np.delete(rec["delivered"], KILL_CID)
+            if rec["delivered"][KILL_CID] or KILL_CID not in rec["dead"] \
+                    or not others.all():
+                raise AssertionError(f"(c) round {r}: delivered "
+                                     f"{rec['delivered'].tolist()}, dead "
+                                     f"{rec['dead']}")
+        t0 = time.perf_counter()
+        rejoin = spawn_local_workers(server.address, [KILL_CID],
+                                     device="cuda", log_dir=log_dir)
+        end = time.monotonic() + LIVE_BOOT_S
+        while KILL_CID not in server.live_workers():
+            if time.monotonic() > end:
+                raise AssertionError("(c) the rejoiner never connected")
+            time.sleep(0.05)
+        synced = server.request_ef(KILL_CID, timeout=LIVE_BOOT_S)
+        out["rejoin_s"] = time.perf_counter() - t0
+        want = banked[KILL_CID][1]
+        if synced is None or not np.array_equal(synced.view(np.uint32),
+                                                want.view(np.uint32)):
+            raise AssertionError("(c) the rejoiner's EF is not the banked "
+                                 "commit")
+        print(f"  (c) client {KILL_CID} killed, rounds {list(OUTAGE)} dead "
+              f"and undelivered; its replacement re-synced bitwise to the "
+              f"banked commit of round {banked[KILL_CID][0]} "
+              f"({out['rejoin_s']:.2f} s from the spawn)")
+        live(1, deadline_s=LIVE_BOOT_S, policy=LIVE_WARM)
+        check_delivered("(c) the rejoin round", loop.history[-1:], codec)
+        final, efs = loop.params, live_efs(server)
+        out["rejoin_round_ms"] = loop.history[-1]["wall_s"] * 1e3
+    finally:
+        stop_workers(server, list(procs) + list(rejoin))
+    total = LIVE_ROUNDS + len(OUTAGE) + 1
+    eng_o, st_o = inproc_codec_engine(world, dev, outage_schedule)
+    st_o, _ = eng_o.run_loop(st_o, total)
+    check_live_bitwise(f"(c) after round {total - 1} vs the in-process run "
+                       f"with client {KILL_CID} out of rounds "
+                       f"{list(OUTAGE)}", final, efs, st_o)
+    if served != only():
+        raise AssertionError(f"(a, c) the server launched {served}")
+    for cid in range(N):
+        got = worker_launches(log_dir, cid)
+        rounds = 1 if cid == KILL_CID else total
+        want = only(fused_cosine=rounds * (S + 1), ef_update=rounds)
+        if got != want:
+            raise AssertionError(f"(a, c) worker {cid} launched {got}, "
+                                 f"expected {want}")
+    print(f"  (a, c) launches read at STOP: {N - 1} workers "
+          f"{only(fused_cosine=total * (S + 1), ef_update=total)} each "
+          f"(({LIVE_ROUNDS} of (a): {LIVE_ROUNDS * (S + 1)} B1 and "
+          f"{LIVE_ROUNDS} B2 a worker, {N * LIVE_ROUNDS * (S + 1)} and "
+          f"{N * LIVE_ROUNDS} in all, the in-process run's), the "
+          f"replacement {worker_launches(log_dir, KILL_CID)}; the server "
+          f"{served}")
+    out["rebuild_s"] = [worker_rebuild_s(log_dir, c) for c in range(N)]
+    return out
+
+
+def live_signsgd(sign_state: FLState, dev, out_dir: str) -> dict:
+    """(b): LIVE_ROUNDS signSGD codec rounds over N workers."""
+    world = live_world("signsgd", dev)
+    args, spec, run, model, params, strategy, codec = world
+    log_dir = os.path.join(out_dir, "live_signsgd")
+    server, procs, connect_s = start_workers(world, log_dir)
+    loop = LiveRoundLoop(server, strategy, codec, run, params)
+    try:
+        reset_counts()
+        loop.run(1, deadline_s=LIVE_BOOT_S, policy=LIVE_WARM)
+        loop.run(LIVE_ROUNDS - 1)
+        served = counts()
+        check_live_bitwise(f"(b) {LIVE_ROUNDS} live signSGD codec rounds vs "
+                           f"phase 6's in-process codec run", loop.params,
+                           live_efs(server), sign_state)
+        check_delivered("(b)", loop.history, codec)
+    finally:
+        stop_workers(server, procs)
+    if served != only(unpack_signs=LIVE_ROUNDS):
+        raise AssertionError(f"(b) the server launched {served}")
+    for cid in range(N):
+        got = worker_launches(log_dir, cid)
+        want = only(fused_cosine=LIVE_ROUNDS, pack_signs=LIVE_ROUNDS)
+        if got != want:
+            raise AssertionError(f"(b) worker {cid} launched {got}, "
+                                 f"expected {want}")
+    print(f"  (b) launches: each worker "
+          f"{only(fused_cosine=LIVE_ROUNDS, pack_signs=LIVE_ROUNDS)}, the "
+          f"server {served}")
+    return {"connect_s": connect_s,
+            "live_ms": [rec["wall_s"] * 1e3 for rec in loop.history],
+            "bytes": round_bytes(loop.history)}
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def poll_endpoints(port: int, got: dict, stop: threading.Event) -> None:
+    """(e): /healthz and /metrics of a running trainer, until /metrics
+    carries the transport's ledger."""
+    url = f"http://127.0.0.1:{port}"
+    while not stop.is_set() and "metrics" not in got:
+        try:
+            with urllib.request.urlopen(f"{url}/healthz", timeout=2) as r:
+                got["healthz"] = json.loads(r.read())
+            with urllib.request.urlopen(f"{url}/metrics", timeout=2) as r:
+                snap = json.loads(r.read())
+            if "transport.ledger" in snap["sources"]:
+                got["metrics"] = snap
+        except OSError:
+            pass
+        time.sleep(0.1)
+
+
+def resume_runs(out_dir: str, transport: str, *whole_flags) -> None:
+    """(d): the trainer with --ckpt-every for RESUME_ROUNDS rounds, then
+    for RESUME_CUT rounds and --resume to RESUME_ROUNDS: the final params
+    (and every client's EF) bitwise equal."""
+    flags = ["--transport", transport, "--ckpt-every", str(RESUME_EVERY),
+             "--round-deadline-s", "60"]
+    whole_dir = os.path.join(out_dir, f"{transport}_whole")
+    part_dir = os.path.join(out_dir, f"{transport}_part")
+    whole, _, _ = run_trainer(whole_dir, "threesfc", "codec",
+                              rounds=RESUME_ROUNDS,
+                              extra=flags + list(whole_flags))
+    run_trainer(part_dir, "threesfc", "codec", rounds=RESUME_CUT,
+                extra=flags)
+    resumed, _, _ = run_trainer(
+        part_dir, "threesfc", "codec", rounds=RESUME_ROUNDS,
+        extra=flags + ["--resume", os.path.join(part_dir, "ckpt")])
+    if whole.ef is None or resumed.ef is None:
+        raise AssertionError(f"(d) {transport}: a run returned no EF")
+    ok = all(same_bits(a, b) for a, b in zip(
+        flat.tree_leaves((whole.params, whole.ef)),
+        flat.tree_leaves((resumed.params, resumed.ef))))
+    if not ok:
+        raise AssertionError(f"(d) {transport}: the resumed run is not "
+                             f"bitwise the uninterrupted one")
+    note = ""
+    if transport == "socket":
+        part_logs = os.path.join(part_dir, "workers")
+        synced = [worker_log(part_logs, c).count("EF residual re-synced")
+                  for c in range(N)]
+        if synced != [1] * N:
+            raise AssertionError(f"(d) re-syncs per worker {synced}")
+        note = "; every resumed worker re-synced from the checkpointed bank"
+    print(f"  (d) {transport}: {RESUME_CUT} rounds, then --resume to "
+          f"{RESUME_ROUNDS}, bitwise the uninterrupted run (params and "
+          f"every client's EF){note}")
+
+
+def trace_reconciles(run_dir: str) -> dict:
+    """(e): ``scripts/trace_report.py`` on a traced socket run, as a
+    subprocess: every round phase present, the trace's bytes exactly the
+    ledger's."""
+    p = subprocess.run(
+        [sys.executable, os.path.join(HERE, "scripts", "trace_report.py"),
+         os.path.join(run_dir, "trace.jsonl"), "--ledger",
+         os.path.join(run_dir, "ledger.json"), "--json"],
+        capture_output=True, text=True, timeout=120)
+    if p.returncode != 0:
+        raise AssertionError(f"(e) trace_report exited {p.returncode}:\n"
+                             f"{p.stderr[-2000:]}")
+    rep = json.loads(p.stdout)
+    rec = rep["reconciliation"]
+    if rep["rounds"] != list(range(RESUME_ROUNDS)) \
+            or not rep["phase_complete"] \
+            or not (rec["uplink_exact"] and rec["downlink_exact"]):
+        raise AssertionError(f"(e) rounds {rep['rounds']}, missing phases "
+                             f"{rep['missing_phases']}, reconciliation "
+                             f"{rec}")
+    print(f"  (e) trace_report: rounds {rep['rounds']}, every phase "
+          f"present; trace bytes up {rec['uplink_trace']} = ledger "
+          f"{rec['uplink_billed']}, down {rec['downlink_trace']} = "
+          f"{rec['downlink_billed']} (exact); overhead up "
+          f"{rec['overhead_up']}, down {rec['overhead_down']}")
+    return rec
+
+
+def phase_host_layers(sfc_state: FLState, sign_state: FLState, dev) -> dict:
+    phase(f"host layers: the socket transport with {N} worker processes on "
+          f"the card, kill and rejoin, resume, observability (N={N}, K={K}, "
+          f"B={B}, S={S})")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_live_") as out_dir:
+        a = live_threesfc(sfc_state, dev, out_dir)
+        b = live_signsgd(sign_state, dev, out_dir)
+        resume_runs(out_dir, "inproc")
+        port, got, stop = free_port(), {}, threading.Event()
+        poller = threading.Thread(target=poll_endpoints,
+                                  args=(port, got, stop), daemon=True)
+        poller.start()
+        try:
+            resume_runs(out_dir, "socket", "--trace", "--metrics-port",
+                        str(port))
+        finally:
+            stop.set()
+            poller.join(10)
+        if got.get("healthz", {}).get("status") != "ok" \
+                or "metrics" not in got:
+            raise AssertionError(f"(e) endpoints during the run: "
+                                 f"{sorted(got)}")
+        print(f"  (e) /healthz {got['healthz']['status']}, /metrics with "
+              f"the transport's ledger source, during the run")
+        rec = trace_reconciles(os.path.join(out_dir, "socket_whole"))
+    med_live = float(np.median(a["live_ms"][1:]))
+    med_inproc = float(np.median(a["inproc_ms"]))
+    print(f"  main-path round wall ms, in turns: live over {N} workers "
+          f"{[round(w, 3) for w in a['live_ms'][1:]]} (median "
+          f"{med_live:.3f}; the warm-up round 0 {a['live_ms'][0]:.3f}), "
+          f"in-process codec {[round(w, 3) for w in a['inproc_ms']]} "
+          f"(median {med_inproc:.3f})")
+    print(f"  signSGD live round wall ms {[round(w, 3) for w in b['live_ms']]}")
+    print(f"  worker boot: spawn to all {N} connected {a['connect_s']:.2f} s "
+          f"(3SFC), {b['connect_s']:.2f} s (signSGD); rebuild after SETUP "
+          f"s {[r[0] for r in a['rebuild_s']]}; the rejoiner "
+          f"{a['rejoin_s']:.2f} s to its re-synced EF, its first round "
+          f"{a['rejoin_round_ms']:.3f} ms")
+    print(f"  bytes per round, 3SFC {a['bytes'][1]}, signSGD {b['bytes'][1]}")
+    wall = time.perf_counter() - t0
+    print(f"  phase 18 wall {wall:.1f} s")
+    return {"live_round_ms": a["live_ms"], "inproc_round_ms": a["inproc_ms"],
+            "median_live_ms": med_live, "median_inproc_ms": med_inproc,
+            "sign_live_round_ms": b["live_ms"],
+            "connect_s": [a["connect_s"], b["connect_s"]],
+            "rebuild_s": a["rebuild_s"], "rejoin_s": a["rejoin_s"],
+            "bytes_per_round": {"threesfc": a["bytes"][1],
+                                "signsgd": b["bytes"][1]},
+            "trace_reconciliation": rec, "phase_s": wall}
+
 
 def main() -> int:
     phase("device")
@@ -2866,8 +3356,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
         state, launched = phase_main_path(out_dir)
         float_round, batches, syn0 = phase_fused(state, dev)
-        sign_state, codec_launched = phase_codec_path(out_dir, state,
-                                                      batches)
+        sign_state, codec_launched, sfc_state = phase_codec_path(
+            out_dir, state, batches)
     phase_frames(dev)
     errs["ssd_chunk"] = phase_b4(dev)
     serve_launched = phase_serve()
@@ -2884,6 +3374,7 @@ def main() -> int:
     phase_lm_routes(dev)
     phase_lm_cpu(dev)
     fanout_bytes = phase_fanout(state, fault_state, batches, dev)
+    host_layers = phase_host_layers(sfc_state, sign_state, dev)
     lm_cfg = get_config("mamba2-370m")
     lm_model, lm_strategy, lm_run = train.lm_setup(
         lm_args(LM_N, LM_BATCH), lm_cfg, LM_COMP, LM_SEQ)
@@ -2926,6 +3417,7 @@ def main() -> int:
     fanout = fanout_walls(state, batches, dev)
     print(json.dumps({"fanout": {**fanout, "gathered_bytes_per_client":
                                  fanout_bytes}}))
+    print(json.dumps({"host_layers": host_layers}))
 
     print(f"chip_smoke wall {time.perf_counter() - _T0:.1f} s (from the "
           f"script's start, the kernels' build included)")

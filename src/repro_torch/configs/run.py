@@ -3,11 +3,12 @@
 The fields the port runs: the FL schedule (``fl``), the client fan-out
 (the single-process loop, or ``'shard_map'`` over the ranks of ``mesh``,
 ``repro_torch.fl.sharding``), the wire mode and its dtype policy, fused
-decode, microbatching, the fault model (``repro_torch.fl.faults``) and the
-transport at its default. The checks copy the JAX package's
-``configs/run.py`` for these fields; ``transport='socket'``, whose path is
-not ported yet, raises ``NotImplementedError``. ``mesh`` is runtime state:
-``to_json`` leaves it out.
+decode, microbatching, the fault model (``repro_torch.fl.faults``), the
+transport (``'inproc'``, or ``'socket'``: a ``SocketServer`` and N worker
+processes, ``repro_torch.comm.transport``) with its deadline, backoff and
+liveness knobs, and the checkpoint cadence (``repro_torch.checkpoint``).
+The checks copy the JAX package's ``configs/run.py``. ``mesh`` is runtime
+state: ``to_json`` leaves it out and ``from_json`` takes it separately.
 """
 from __future__ import annotations
 
@@ -15,13 +16,11 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
-from repro_torch.configs.base import FLConfig
+from repro_torch.configs.base import CompressorConfig, FLConfig
 
 CLIENT_PARALLEL_MODES = ("vmap", "shard_map")
 WIRE_MODES = ("float", "codec")
 TRANSPORT_MODES = ("inproc", "socket")
-
-_NOT_PORTED = "not ported yet, see ROADMAP.md"
 
 
 @dataclass(frozen=True)
@@ -56,8 +55,25 @@ class RunConfig:
     # seed of the fault stream: schedules are a pure function of
     # (fault_seed, round)
     fault_seed: int = 0
-    # -- transport ---------------------------------------------------------
+    # -- transport (repro_torch.comm.transport) ----------------------------
+    # how rounds move: 'inproc' (one process, the engine's loop) or
+    # 'socket' (a SocketServer + N worker processes over the live loop)
     transport: str = "inproc"
+    # hard bound on one round's collect phase
+    round_deadline_s: float = 30.0
+    # per-client receive window before the first RESEND ...
+    recv_timeout_s: float = 2.0
+    # ... growing by this factor per attempt (exponential backoff)
+    recv_backoff: float = 2.0
+    # RESENDs before a client is given up as dropped this round
+    transport_retries: int = 2
+    # worker liveness tick period (heartbeats flow even mid-compute) ...
+    heartbeat_s: float = 0.5
+    # ... and how long silence lasts before a worker counts as dead
+    liveness_timeout_s: float = 5.0
+    # -- recovery (repro_torch.checkpoint) ---------------------------------
+    # full-state checkpoint cadence in rounds (0 = final only)
+    ckpt_every: int = 0
     # -- runtime (never serialized) ----------------------------------------
     # the DeviceMesh of the shard_map fan-out (repro_torch.launch.mesh)
     mesh: Any = field(default=None, compare=False, repr=False)
@@ -93,11 +109,48 @@ class RunConfig:
             raise ValueError(
                 f"transport must be 'inproc' or 'socket', got "
                 f"{self.transport!r}")
-        if self.transport == "socket" and self.client_parallel != "vmap":
+        if self.transport == "socket":
+            if self.wire != "codec":
+                raise ValueError(
+                    "transport='socket' requires wire='codec': only framed "
+                    "uint8 buffers cross a real wire")
+            if self.client_parallel != "vmap":
+                raise ValueError(
+                    "transport='socket' requires client_parallel='vmap': "
+                    "worker processes ARE the client fan-out (shard_map is "
+                    "the in-process mesh path)")
+            if self.has_faults:
+                raise ValueError(
+                    "transport='socket' is incompatible with the schedule-"
+                    "driven fault knobs: on a live wire, faults are real "
+                    "transport events (timeouts, corruption, dead workers) "
+                    "mapped onto delivered=False — inject them at the "
+                    "transport (SocketServer rx_filter) instead")
+        if self.round_deadline_s <= 0.0:
             raise ValueError(
-                "transport='socket' requires client_parallel='vmap': "
-                "worker processes ARE the client fan-out (shard_map is "
-                "the in-process mesh path)")
+                f"round_deadline_s must be > 0, got {self.round_deadline_s}")
+        if self.recv_timeout_s <= 0.0:
+            raise ValueError(
+                f"recv_timeout_s must be > 0, got {self.recv_timeout_s}")
+        if self.recv_backoff < 1.0:
+            raise ValueError(
+                f"recv_backoff must be >= 1.0, got {self.recv_backoff}")
+        if self.transport_retries < 0:
+            raise ValueError(
+                f"transport_retries must be >= 0, got "
+                f"{self.transport_retries}")
+        if self.heartbeat_s <= 0.0:
+            raise ValueError(
+                f"heartbeat_s must be > 0, got {self.heartbeat_s}")
+        if self.liveness_timeout_s <= self.heartbeat_s:
+            raise ValueError(
+                f"liveness_timeout_s ({self.liveness_timeout_s}) must "
+                f"exceed heartbeat_s ({self.heartbeat_s}) — a window "
+                f"shorter than one heartbeat declares every worker dead")
+        if self.ckpt_every < 0:
+            raise ValueError(
+                f"ckpt_every must be >= 0 (0 = final checkpoint only), got "
+                f"{self.ckpt_every}")
         if self.fused_decode and self.staleness_max > 0:
             raise ValueError(
                 "fused_decode is incompatible with staleness_max > 0: the "
@@ -109,8 +162,6 @@ class RunConfig:
                     "client_parallel='shard_map' requires an explicit mesh "
                     "(see repro_torch.fl.sharding.make_fl_shardings)")
             self.shardings().check_divisible(self.fl.num_clients)
-        if self.transport == "socket":
-            raise NotImplementedError(f"transport='socket' {_NOT_PORTED}")
 
     @property
     def has_faults(self) -> bool:
@@ -131,6 +182,18 @@ class RunConfig:
             return None
         return self.shardings().axes
 
+    def retry_policy(self):
+        """The transport ``RetryPolicy`` these knobs describe: retry count
+        and backoff schedule, single receive windows capped by the round
+        deadline (no receive may outwait the round)."""
+        # fl.engine sits above this package: imported here
+        from repro_torch.fl.engine import RetryPolicy
+        return RetryPolicy(
+            max_retries=self.transport_retries,
+            recv_timeout_s=self.recv_timeout_s,
+            recv_backoff=self.recv_backoff,
+            max_timeout_s=max(self.round_deadline_s, self.recv_timeout_s))
+
     def replace(self, **kw) -> "RunConfig":
         return dataclasses.replace(self, **kw)
 
@@ -140,6 +203,16 @@ class RunConfig:
                if f.name != "mesh"}
         out["fl"] = dataclasses.asdict(self.fl)
         return out
+
+    @classmethod
+    def from_json(cls, d: Dict[str, Any], *, mesh=None) -> "RunConfig":
+        """Inverse of ``to_json`` (the runtime ``mesh`` re-attached); keys
+        a JSON predating a field take the field's default."""
+        fl_d = dict(d["fl"])
+        comp = CompressorConfig(**fl_d.pop("compressor"))
+        kw = {f.name: d[f.name] for f in dataclasses.fields(cls)
+              if f.name not in ("fl", "mesh") and f.name in d}
+        return cls(fl=FLConfig(compressor=comp, **fl_d), mesh=mesh, **kw)
 
     @classmethod
     def from_flags(cls, args, *, compressor, client_parallel: str = "vmap",
@@ -166,4 +239,13 @@ class RunConfig:
                    drop_rate=getattr(args, "drop_rate", 0.0),
                    straggler_rate=getattr(args, "straggler_rate", 0.0),
                    staleness_max=getattr(args, "staleness_max", 0),
-                   fault_seed=getattr(args, "fault_seed", 0))
+                   fault_seed=getattr(args, "fault_seed", 0),
+                   transport=getattr(args, "transport", "inproc"),
+                   round_deadline_s=getattr(args, "round_deadline_s", 30.0),
+                   recv_timeout_s=getattr(args, "recv_timeout_s", 2.0),
+                   recv_backoff=getattr(args, "recv_backoff", 2.0),
+                   transport_retries=getattr(args, "transport_retries", 2),
+                   heartbeat_s=getattr(args, "heartbeat_s", 0.5),
+                   liveness_timeout_s=getattr(args, "liveness_timeout_s",
+                                              5.0),
+                   ckpt_every=getattr(args, "ckpt_every", 0))

@@ -54,6 +54,31 @@ def tree_unflatten(treedef: tuple, leaves) -> PyTree:
     return build(treedef)
 
 
+def tree_leaves_with_path(tree: PyTree) -> list:
+    """``[(path, leaf)]`` in ``tree_flatten`` order; a path is the tuple of
+    dict keys, NamedTuple field names and sequence indices from the root
+    (``jax.tree_util``'s ``DictKey``/``GetAttrKey``/``SequenceKey``)."""
+    out: list = []
+
+    def walk(node, path):
+        if node is None:
+            return
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], path + (k,))
+        elif _is_namedtuple(node):
+            for name, c in zip(node._fields, node):
+                walk(c, path + (name,))
+        elif isinstance(node, (list, tuple)):
+            for i, c in enumerate(node):
+                walk(c, path + (i,))
+        else:
+            out.append((path, node))
+
+    walk(tree, ())
+    return out
+
+
 def tree_leaves(tree: PyTree) -> list:
     return tree_flatten(tree)[0]
 

@@ -21,6 +21,14 @@ three phases, each parameterized by the ``RunConfig`` and the
      ``supports_fused_aggregate`` (3SFC) aggregates straight from the
      batched payloads (``strategy.server_aggregate``, one backward).
 
+The client body (``make_client_step``, with ``missed_ef`` for a message
+that does not count) and the codec round's server step
+(``codec_server_step``: reconstructions, ``masked_mean``,
+``server_update``) are module functions: the socket transport's workers
+(``repro_torch.launch.worker``) and its server loop
+(``repro_torch.fl.engine.LiveRoundLoop``) run these same functions, so a
+live round is bitwise the in-process one.
+
 Fan-out (``run.client_parallel``): ``'vmap'`` loops over all N clients in
 one process. ``'shard_map'`` (requires ``run.mesh``; ``repro_torch.fl.
 sharding``) runs on every rank of the mesh: the rank loops over its own
@@ -72,7 +80,6 @@ from repro_torch.core import flat
 from repro_torch.core.strategy import CompressionStrategy
 from repro_torch.core.threesfc import SynData
 from repro_torch.fl import faults as faults_lib
-from repro_torch.fl import sharding as sharding_lib
 from repro_torch.fl.client import local_train
 from repro_torch.fl.server import aggregate, server_update
 
@@ -172,6 +179,101 @@ def _check_codec(run: RunConfig, strategy: CompressionStrategy,
     codec.check_round_wire()
 
 
+class ClientStep(NamedTuple):
+    """One client's round body: its message (reconstruction tree, wire
+    payload or codec frame), its residual when the message counts, its
+    local update ``g`` and loss, and the compressor's metrics."""
+
+    msg: Any
+    ef: PyTree
+    g: PyTree
+    loss: torch.Tensor
+    metrics: Any
+
+
+def make_client_step(loss_fn: Callable[[PyTree, Dict], torch.Tensor],
+                     strategy: CompressionStrategy, run: RunConfig, *,
+                     codec=None) -> Callable[..., ClientStep]:
+    """Client ``cid``'s body of round ``rnd``: K local SGD steps, then the
+    strategy's EF-compressed message — a codec frame (``run.wire ==
+    'codec'``), the wire payload (fused decode) or the reconstruction.
+    The in-process round runs it for each of its clients and a socket
+    worker (``repro_torch.launch.worker``) for its one; both then pick the
+    residual: ``ClientStep.ef`` when the message counts, ``missed_ef``
+    when it does not.
+
+    Returns ``step(params, batches_i, ef_i, key_i, cid, rnd)``."""
+    cfg: FLConfig = run.fl
+    if run.wire == "codec":
+        def encode(key_i, g, ef_i, params, cid, rnd):
+            return strategy.wire_step(key_i, g, ef_i, params, codec=codec,
+                                      round_idx=rnd, client_idx=cid)
+    else:
+        method = strategy.payload_step if run.fused_decode else strategy.step
+
+        def encode(key_i, g, ef_i, params, cid, rnd):
+            return method(key_i, g, ef_i, params)
+
+    def step(params, batches_i, ef_i, key_i, cid: int,
+             rnd: int) -> ClientStep:
+        g, loss = local_train(loss_fn, params, batches_i, cfg.local_lr,
+                              num_micro=run.num_micro)
+        msg, ef_row, m = encode(key_i, g, ef_i, params, cid, rnd)
+        return ClientStep(msg, ef_row, g, loss, m)
+
+    return step
+
+
+def missed_ef(strategy: CompressionStrategy, out: ClientStep, ef_i: PyTree,
+              participated: bool) -> PyTree:
+    """The residual of a client whose message did not count: a skipped
+    client's freezes; a dropped message leaves the whole update u = g + e
+    in it (EF off: e stays)."""
+    dropped = participated and strategy.cfg.error_feedback
+    return strategy._accumulate(out.g, ef_i) if dropped else ef_i
+
+
+def masked_mean(recons: PyTree, arrived: torch.Tensor,
+                device) -> Tuple[PyTree, float]:
+    """The masked aggregate over the leading client axis and its count:
+    ``mean(where(arrived, x, 0)) · (N/count)``, which multiplies by
+    exactly 1.0 when every client arrived (then it is bitwise the plain
+    mean). ``arrived`` is a host (N,) bool tensor; rows it masks out are
+    never read, so they may hold anything (a placeholder frame's
+    decode)."""
+    cnt = float(arrived.sum())
+    ratio = _ratio(arrived.numel(), cnt)
+    mask = arrived.to(device)
+    agg = flat.tree_map(lambda x: torch.mean(torch.where(
+        _bcast(mask, x), x, 0.0), dim=0) * ratio, recons)
+    return agg, cnt
+
+
+def server_messages(codec, msgs, params: PyTree, *, fused: bool) -> PyTree:
+    """The round's (N, ...) messages as the server aggregates them: as
+    they are (no codec), the decoded payloads (fused) or the
+    reconstructions, a round's frames decoded as one batch."""
+    if codec is None:
+        return msgs
+    if fused:
+        return codec.decode_batch(msgs)
+    return codec.recon_batch(msgs, params)
+
+
+def codec_server_step(codec, params: PyTree, frames: torch.Tensor,
+                      arrived: torch.Tensor,
+                      server_lr: float) -> Tuple[PyTree, float]:
+    """The server half of a codec round from its (N, nbytes) frames and the
+    host mask of those that arrived: reconstructions, the masked mean,
+    ``server_update``. The faulted codec round at ``staleness_max == 0``
+    without weights computes the same, in the same order. Returns (new
+    params, count)."""
+    device = flat.tree_leaves(params)[0].device
+    recons = server_messages(codec, frames, params, fused=False)
+    agg, cnt = masked_mean(recons, arrived, device)
+    return server_update(params, agg, server_lr), cnt
+
+
 def build_fl_round(
     loss_fn: Callable[[PyTree, Dict], torch.Tensor],
     strategy: CompressionStrategy,
@@ -222,15 +324,7 @@ def build_fl_round(
             f"{strategy.cfg.kind!r} to implement mask_payloads "
             f"(weighting the batched wire payloads)")
     _check_codec(run, strategy, codec)
-    if wired:
-        def encode(key_i, g, ef_i, params, cid, rnd):
-            return strategy.wire_step(key_i, g, ef_i, params, codec=codec,
-                                      round_idx=rnd, client_idx=cid)
-    else:
-        step = strategy.payload_step if fused else strategy.step
-
-        def encode(key_i, g, ef_i, params, cid, rnd):
-            return step(key_i, g, ef_i, params)
+    client_step = make_client_step(loss_fn, strategy, run, codec=codec)
     wire_bytes = float(codec.nbytes) if wired else 0.0
     if run.client_parallel == "shard_map":
         shardings = run.shardings()
@@ -254,11 +348,7 @@ def build_fl_round(
         1.0 under the null schedule."""
         now = sched.arrives_now
         if S == 0 and weights is None:
-            cnt = float(now.sum())
-            ratio = _ratio(N, cnt)
-            mask = now.to(device)
-            agg = flat.tree_map(lambda x: torch.mean(torch.where(
-                _bcast(mask, x), x, 0.0), dim=0) * ratio, recons)
+            agg, cnt = masked_mean(recons, now, device)
             return agg, cnt, state.buf, state.buf_w
         # one copy of the round's masks and weights to the device
         m = torch.stack([now.to(torch.float32),
@@ -295,9 +385,12 @@ def build_fl_round(
             return (msgs if wired else flat.tree_stack(msgs),
                     torch.stack(losses), torch.stack(cos),
                     None if fused else torch.stack(floats))
+        # imported here: DTensor's import (sympy, fx) takes seconds, and
+        # a socket worker, which never shards, should not pay it
+        from repro_torch.fl.sharding import all_gather_rows
         rows = [(m, l, c) if fused else (m, l, c, f)
                 for m, l, c, f in zip(msgs, losses, cos, floats)]
-        got = sharding_lib.all_gather_rows(rows, shardings.group)
+        got = all_gather_rows(rows, shardings.group)
         return got[0], got[1], got[2], None if fused else got[3]
 
     def fl_round(state: FLState, client_batches: PyTree, key: int,
@@ -332,20 +425,16 @@ def build_fl_round(
                      else client_generator(key, i, device))
             # every client trains and encodes, scheduled or not, as in the
             # reference (its cosine is reported either way)
-            g, loss = local_train(loss_fn, params, batches_i, cfg.local_lr,
-                                  num_micro=run.num_micro)
-            msg, ef_row, m = encode(key_i, g, ef_i, params, i, state.round)
+            out = client_step(params, batches_i, ef_i, key_i, i, state.round)
+            ef_row = out.ef
             if faulted and not (part[i] and deliv[i]):
-                # a skipped client's residual freezes; a dropped payload
-                # leaves the whole update u = g + e in it (EF off: e stays)
-                dropped = part[i] and strategy.cfg.error_feedback
-                ef_row = strategy._accumulate(g, ef_i) if dropped else ef_i
+                ef_row = missed_ef(strategy, out, ef_i, part[i])
             # the new residual row goes straight into the (N, ...) tensors
             flat.tree_map(lambda dst, src: dst[j].copy_(src), new_ef, ef_row)
-            msgs.append(msg)
-            losses.append(loss)
-            cos.append(m.cosine)
-            floats.append(m.payload_floats)
+            msgs.append(out.msg)
+            losses.append(out.loss)
+            cos.append(out.metrics.cosine)
+            floats.append(out.metrics.payload_floats)
         msgs, losses, cos, floats = stack_clients(msgs, losses, cos, floats)
         if faulted:
             # loss over participants only: mean × N/count, exactly 1.0 when
@@ -356,12 +445,8 @@ def build_fl_round(
         else:
             loss = torch.mean(losses)
         # (N, ...) messages: payloads (fused) or reconstructions
-        if not wired:
-            batch = msgs
-        elif fused:
-            batch = codec.decode_batch(msgs)
-        else:
-            batch = codec.recon_batch(msgs, params)
+        batch = server_messages(codec if wired else None, msgs, params,
+                                fused=fused)
         buf, buf_w = state.buf, state.buf_w
         if fused:
             pf = torch.tensor(strategy.payload_floats(params),

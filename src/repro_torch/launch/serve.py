@@ -12,9 +12,10 @@ when no CUDA device is available and the CPU was not asked for.
 ``--size smoke`` (the default, as in the reference) serves the reduced
 config; ``--size full`` the published widths. ``--ssd-kernel`` sets
 ``use_pallas_ssd``: every SSM layer's prefill runs its intra-chunk step in
-kernel B4, and a prompt length that route cannot take raises. The
-reference's ``--metrics-port`` waits for the port of ``repro.obs``
-(ROADMAP.md).
+kernel B4, and a prompt length that route cannot take raises.
+``--metrics-port`` serves ``/healthz`` and ``/metrics`` (the
+``repro_torch.obs`` registry snapshot: prefill and decode-step times,
+token counters) for the run, and after it until interrupted.
 
 Seeds: params from ``fold_in(seed, 0)``, the prompt from
 ``fold_in(seed, 1)`` (``repro_torch.fl.round.fold_in``).
@@ -32,6 +33,8 @@ from repro_torch.fl.round import fold_in
 from repro_torch.launch.train import resolve_device
 from repro_torch.models.build import build_model
 from repro_torch.models.transformer import LM
+from repro_torch.obs import get_registry
+from repro_torch.obs.http import ObsHTTPServer
 
 
 class ServeResult(NamedTuple):
@@ -76,10 +79,42 @@ def main(argv=None) -> ServeResult:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; the run raises when cuda is "
                          "asked for and no CUDA device is available")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    dest="metrics_port",
+                    help="serve /healthz + /metrics (the obs meters "
+                         "snapshot) on this port (0 picks a free port)")
     args = ap.parse_args(argv)
     if args.gen < 1:
         raise ValueError(f"--gen must be at least 1, got {args.gen}")
+    http = None
+    if args.metrics_port is not None:
+        http = ObsHTTPServer(port=args.metrics_port)
+        print(f"metrics -> {http.url}/metrics  health -> {http.url}/healthz",
+              flush=True)
+    try:
+        result = _serve(args)
+        if http is not None:
+            _linger()
+        return result
+    finally:
+        if http is not None:
+            http.stop()
 
+
+def _linger() -> None:
+    """Keep the metrics endpoint up until ctrl-c."""
+    print("serving metrics until interrupted (ctrl-c to exit)", flush=True)
+    try:
+        while True:
+            time.sleep(1.0)
+    except KeyboardInterrupt:
+        pass
+
+
+def _serve(args) -> ServeResult:
+    meters = get_registry()
+    meters.gauge("serve.batch").set(args.batch)
+    meters.gauge("serve.prompt_len").set(args.prompt_len)
     device = resolve_device(args.device)
     cfg = (get_config if args.size == "full" else get_smoke_config)(args.arch)
     if args.ssd_kernel:
@@ -101,6 +136,8 @@ def main(argv=None) -> ServeResult:
         logits, cache, t = model.prefill(params, tokens, cache_len)
         _sync(device)
         prefill_s = time.perf_counter() - t0
+        meters.histogram("serve.prefill_s").observe(prefill_s)
+        meters.counter("serve.prefills").inc()
         print(f"prefill: batch={args.batch} len={args.prompt_len} "
               f"({prefill_s:.3f}s)")
 
@@ -108,13 +145,19 @@ def main(argv=None) -> ServeResult:
         out = [tok]
         t0 = time.perf_counter()
         for i in range(args.gen - 1):
+            step_t0 = time.perf_counter()
             logits, cache = model.decode_step(params, cache, tok, t + i)
             tok = torch.argmax(logits, -1)
             out.append(tok)
+            # the host's time per step (the device may still run behind)
+            meters.histogram("serve.decode_step_s").observe(
+                time.perf_counter() - step_t0)
         _sync(device)
         decode_s = time.perf_counter() - t0
     gen = torch.stack(out, dim=1)
     n_tok = args.gen * args.batch
+    meters.counter("serve.tokens").inc(n_tok)
+    meters.gauge("serve.tokens_per_s").set(n_tok / max(decode_s, 1e-9))
     print(f"decoded {args.gen} tokens x {args.batch} seqs in {decode_s:.2f}s "
           f"({n_tok / max(decode_s, 1e-9):.1f} tok/s)")
     print("sample token ids:", gen[0, :12].tolist())

@@ -6,8 +6,10 @@ spec, N=4, K=1, B=8): schedule determinism and exact rate edges, the masked
 pipeline under the null schedule bitwise the unfaulted round over the
 reference's 14 (kind, wire, fused) combinations, EF frozen for a skipped
 client under every strategy, residual mass conserved on a dropped payload,
-the staleness ring buffer, cadence invariance, and the wire-hardening cases
-that need no faulty channel. Then 3 rounds under one injected schedule with
+the staleness ring buffer, cadence invariance, and the wire-hardening cases,
+the seeded ``FaultyChannel`` (byte-identical to the reference's: the same
+seed and sends give the same wire output and fault buckets) and
+``RoundEngine.deliver``'s retry and give-up. Then 3 rounds under one injected schedule with
 a skipped, a dropped and a late client, in both packages: params within
 rtol 1e-4 / atol 1e-6 and EF within rtol 1e-4 / atol 1e-5 (the rounds'
 declared tolerances: the two frameworks differ only in summation order),
@@ -36,7 +38,8 @@ from repro.fl.round import fl_init as jfl_init
 from repro.models.build import vision_syn_spec as jsyn_spec
 from repro.models.cnn import VisionSpec as JVisionSpec
 from repro.models.cnn import make_paper_model as jmodel
-from repro_torch.comm import InProcessChannel, make_codec
+from repro.comm.channel import FaultyChannel as JFaultyChannel
+from repro_torch.comm import FaultyChannel, InProcessChannel, make_codec
 from repro_torch.comm.frame import (BadMagicError, FrameError, FrameSpec,
                                     TruncatedFrameError, encode_header,
                                     parse_header)
@@ -48,7 +51,8 @@ from repro_torch.core.threesfc import SynData
 from repro_torch.data.partition import dirichlet_partition
 from repro_torch.fl import faults as F
 from repro_torch.fl.client import local_train
-from repro_torch.fl.engine import RoundEngine, device_pools, vision_batcher
+from repro_torch.fl.engine import (RetryPolicy, RoundEngine, device_pools,
+                                   vision_batcher)
 from repro_torch.fl.round import (build_fl_round, client_generator, fl_init,
                                   fold_in)
 from repro_torch.launch import train
@@ -592,3 +596,137 @@ def test_parse_header_typed_error_subclasses():
         parse_header(bad)
     assert issubclass(BadMagicError, FrameError)
     assert issubclass(FrameError, ValueError)
+
+
+def test_faulty_channel_is_deterministic_and_billed():
+    frames = [_valid_frame(client_idx=i) for i in range(64)]
+
+    def run(seed):
+        ch = FaultyChannel(drop_prob=0.25, truncate_prob=0.25,
+                           bitflip_prob=0.25, seed=seed)
+        ch.begin_round()
+        return [ch.send_up(f) for f in frames], ch
+
+    got1, ch1 = run(7)
+    got2, _ = run(7)
+    for a, b in zip(got1, got2):
+        assert (a is None) == (b is None)
+        if a is not None:
+            np.testing.assert_array_equal(a, b)
+    # the wire billed every send, including the ones it then ate
+    assert ch1.uplink.messages == 64
+    assert ch1.uplink.total_bytes == sum(f.nbytes for f in frames)
+    assert ch1.dropped > 0 and ch1.corrupted > 0
+    # corrupted frames are rejected with a typed error, never silently kept
+    for f in got1:
+        if f is None:
+            continue
+        try:
+            hdr = parse_header(f)
+            assert hdr["kind"] == "identity"
+        except FrameError:
+            pass
+
+
+def test_engine_deliver_retry_and_give_up():
+    frames = [_valid_frame(client_idx=i) for i in range(8)]
+    ch = FaultyChannel(seed=0)
+    ch.begin_round()
+    rep = RoundEngine.deliver(ch, frames)
+    assert rep.delivered.all() and rep.retries == 0
+    assert all(f is not None for f in rep.frames)
+    # dead wire: give up after the policy's retries, all marked dropped
+    dead = FaultyChannel(drop_prob=1.0, seed=0)
+    dead.begin_round()
+    rep = RoundEngine.deliver(dead, frames, policy=RetryPolicy(max_retries=2))
+    assert not rep.delivered.any()
+    assert rep.retries == 8 * 2
+    assert dead.uplink.messages == 8 * 3        # every re-send was billed
+    # flaky wire: retries fill in most of the losses
+    flaky = FaultyChannel(drop_prob=0.4, bitflip_prob=0.3, seed=3)
+    flaky.begin_round()
+    rep = RoundEngine.deliver(flaky, frames,
+                              policy=RetryPolicy(max_retries=4))
+    assert rep.delivered.sum() > 0 and rep.retries > 0
+
+
+def test_faulty_channel_per_round_fault_attribution():
+    """Every injected fault lands in the bucket of the round it hit, the
+    buckets sum to the running totals, and opening rounds on the inner
+    channel is rejected."""
+    ch = FaultyChannel(drop_prob=0.3, bitflip_prob=0.3, seed=5)
+    per_round = []
+    for r in range(4):
+        assert ch.begin_round() == r
+        for i in range(32):
+            ch.send_up(_valid_frame(round_idx=r, client_idx=i))
+        per_round.append((ch.dropped_per_round[-1],
+                          ch.corrupted_per_round[-1]))
+    assert len(ch.dropped_per_round) == len(ch.corrupted_per_round) == 4
+    assert sum(ch.dropped_per_round) == ch.dropped > 0
+    assert sum(ch.corrupted_per_round) == ch.corrupted > 0
+    assert ch.dropped_per_round == [d for d, _ in per_round]
+    assert ch.corrupted_per_round == [c for _, c in per_round]
+    assert len(ch.uplink.per_round) == 4
+    assert ch.uplink.messages == 4 * 32
+    fresh = FaultyChannel(drop_prob=1.0, seed=0)
+    fresh.inner.begin_round()
+    with pytest.raises(RuntimeError, match="begin_round"):
+        fresh.send_up(_valid_frame())
+
+
+def test_faulty_channel_downlink_broadcast():
+    """Broadcasts ride the same faulty wire: every byte billed downlink,
+    drops surface as None, a corrupted broadcast is rejected by the frame
+    parser with a typed FrameError."""
+    frame = _valid_frame()
+    ch = FaultyChannel(drop_prob=0.25, truncate_prob=0.25,
+                       bitflip_prob=0.25, seed=11)
+    ch.begin_round()
+    n_clients = 64
+    outcomes = {"ok": 0, "dropped": 0, "rejected": 0, "payload_flip": 0}
+    for _ in range(n_clients):
+        got = ch.send_down(frame)
+        if got is None:
+            outcomes["dropped"] += 1
+            continue
+        try:
+            parse_header(got)
+        except FrameError:
+            outcomes["rejected"] += 1
+            continue
+        if np.array_equal(got, frame):
+            outcomes["ok"] += 1
+        else:
+            outcomes["payload_flip"] += 1
+    assert ch.downlink.messages == n_clients
+    assert ch.downlink.per_round == [n_clients * frame.nbytes]
+    assert outcomes["dropped"] == ch.dropped > 0
+    assert outcomes["ok"] > 0
+    assert (outcomes["rejected"] + outcomes["payload_flip"]
+            <= ch.corrupted == ch.corrupted_per_round[0])
+    assert ch.corrupted > 0
+
+
+@pytest.mark.parametrize("seed", [0, 7, 11])
+def test_faulty_channel_is_byte_identical_to_the_reference(seed):
+    """The same seed and the same sends, up and down over 3 rounds, give
+    the same wire output (drops, truncations, flipped bits) and the same
+    fault buckets and byte ledger in both packages."""
+    port = FaultyChannel(drop_prob=0.2, truncate_prob=0.2,
+                         bitflip_prob=0.3, max_bitflips=5, seed=seed)
+    ref = JFaultyChannel(drop_prob=0.2, truncate_prob=0.2,
+                         bitflip_prob=0.3, max_bitflips=5, seed=seed)
+    for r in range(3):
+        assert port.begin_round() == ref.begin_round() == r
+        for i in range(24):
+            f = _valid_frame(round_idx=r, client_idx=i)
+            for send in ("send_up", "send_down"):
+                a = getattr(port, send)(f)
+                b = getattr(ref, send)(f)
+                assert (a is None) == (b is None)
+                if a is not None:
+                    assert a.dtype == b.dtype == np.uint8
+                    assert a.tobytes() == b.tobytes()
+    assert port.fault_stats() == ref.fault_stats()
+    assert port.inner.ledger() == ref.inner.ledger()

@@ -1,7 +1,8 @@
-"""The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``)
-imports JAX or anything of the reference package ``repro``; its entry
-point runs on the CUDA device unless the CPU is asked for; its kernel
-wrappers never fall back from a device tensor to the plain version."""
+"""The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``
+or the port's examples) imports JAX or anything of the reference package
+``repro``; its entry points and its socket workers run on the CUDA device
+unless the CPU is asked for; its kernel wrappers never fall back from a
+device tensor to the plain version."""
 import ast
 import glob
 import os
@@ -18,7 +19,8 @@ from repro_torch.kernels import fused_cosine as fc_mod
 from repro_torch.kernels import sign_quant as sq_mod
 from repro_torch.kernels import ssd_chunk as ssd_mod
 from repro_torch.kernels import topk_mask as tm_mod
-from repro_torch.launch import train
+from repro_torch.comm import transport
+from repro_torch.launch import train, worker
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "src", "repro_torch")
@@ -54,8 +56,12 @@ def _forbidden(mod: str) -> bool:
 def test_no_port_module_imports_jax_or_the_reference():
     files = _port_files()
     assert len(files) > 20
-    assert {"quickstart_torch.py", "compress_llm_update_torch.py"} <= {
-        os.path.basename(p) for p in files}
+    assert {"quickstart_torch.py", "compress_llm_update_torch.py",
+            "fl_training_torch.py"} <= {os.path.basename(p) for p in files}
+    rel = {os.path.relpath(p, PORT) for p in files}
+    assert {"obs/trace.py", "obs/meters.py", "obs/log.py", "obs/http.py",
+            "checkpoint/ckpt.py", "comm/transport.py", "launch/worker.py",
+            "analysis/protocol.py"} <= rel
     bad = [(os.path.relpath(p, REPO), m) for p in files
            for m in _imported_modules(p) if _forbidden(m)]
     assert not bad, bad
@@ -73,7 +79,10 @@ def test_importing_the_trainer_loads_no_jax():
             "repro_torch.launch.serve, repro_torch.models.ssm, "
             "repro_torch.models.transformer, repro_torch.kernels.ssd_chunk, "
             "repro_torch.core.compressor, repro_torch.core.fedsynth, "
-            "repro_torch.core.baselines, repro_torch.core.error_feedback\n"
+            "repro_torch.core.baselines, repro_torch.core.error_feedback, "
+            "repro_torch.obs, repro_torch.obs.http, repro_torch.checkpoint, "
+            "repro_torch.comm.transport, repro_torch.launch.worker, "
+            "repro_torch.analysis.protocol\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -154,3 +163,63 @@ def test_library_names_follow_the_headers_they_include(tmp_path,
     header.write_text(header.read_text() + "// edited\n")
     changed = {n for n in _build.KERNELS if _build._lib_path(n) != before[n]}
     assert changed == including
+
+
+def test_spawned_workers_run_on_the_card_and_set_no_jax_platform(
+        monkeypatch):
+    """``spawn_local_workers`` launches the port's worker with ``--device
+    cuda`` unless told otherwise, puts ``src/`` on PYTHONPATH, sets no
+    ``JAX_PLATFORMS`` (nor any other CPU default), and caps only CPU
+    workers' threads."""
+    seen = []
+
+    class FakePopen:
+        def __init__(self, cmd, env=None, **kw):
+            seen.append((cmd, env))
+
+    monkeypatch.setattr(transport.subprocess, "Popen", FakePopen)
+    env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
+    transport.spawn_local_workers(("127.0.0.1", 1), [0, 3], env=env)
+    transport.spawn_local_workers(("127.0.0.1", 1), [1], env=env,
+                                  device="cpu", cpu_threads=2)
+    assert len(seen) == 3
+    for cmd, e in seen:
+        assert cmd[1:3] == ["-m", "repro_torch.launch.worker"]
+        assert "JAX_PLATFORMS" not in e
+        assert e["PYTHONPATH"].split(os.pathsep)[0] == os.path.join(REPO,
+                                                                    "src")
+    (c0, _), (c3, _), (c1, _) = seen
+    assert c0[c0.index("--device") + 1] == "cuda" and "--threads" not in c0
+    assert c3[c3.index("--client-id") + 1] == "3"
+    assert c1[c1.index("--device") + 1] == "cpu"
+    assert c1[c1.index("--threads") + 1] == "2"
+
+
+def test_worker_without_cuda_raises_unless_cpu_is_asked(monkeypatch):
+    from repro_torch.configs.base import CompressorConfig, FLConfig
+    from repro_torch.configs.run import RunConfig
+    from repro_torch.models.cnn import VisionSpec
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fl = FLConfig(num_clients=2, local_batch=4,
+                  compressor=CompressorConfig(kind="stc"))
+    run = RunConfig(fl=fl, wire="codec", transport="socket")
+    spec = VisionSpec("tiny", (6, 6, 1), 3)
+    setup = worker.vision_setup(run, model="mlp", spec=spec, train_size=32)
+    assert setup["device"] == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        worker.build_compute(setup, 0)
+    # the CPU when the blob or the worker's flag asks for it
+    assert worker.build_compute(setup, 1, "cpu").device.type == "cpu"
+    cpu_setup = worker.vision_setup(run, model="mlp", spec=spec,
+                                    train_size=32, device="cpu")
+    assert worker.build_compute(cpu_setup, 0).device.type == "cpu"
+
+
+def test_lm_smoke_refuses_the_socket_transport(tmp_path):
+    """The socket transport drives vision runs only, as the reference's:
+    ``train_lm_smoke`` raises ``ValueError`` for it."""
+    with pytest.raises(ValueError, match="vision runs only"):
+        train.main(["--arch", "mamba2-370m", "--smoke", "--transport",
+                    "socket", "--wire", "codec", "--device", "cpu",
+                    "--out", str(tmp_path)])

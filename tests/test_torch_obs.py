@@ -1,0 +1,515 @@
+"""The port's observability: the mirror of tests/test_obs.py for
+``repro_torch.obs`` (tracer ring, meters registry, HTTP endpoints,
+structured logger), ``scripts/trace_report.py`` reading traces the port's
+tracer writes, the ledger's overhead surfacing on the port's channel, and
+a live socket run of the port's trainer with ``--trace`` and
+``--metrics-port`` whose trace reconciles exactly with its ledger."""
+import importlib.util
+import json
+import logging
+import os
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+
+import pytest
+import torch
+
+from repro_torch.comm.channel import InProcessChannel
+from repro_torch.launch import train as train_mod
+from repro_torch.obs import (Tracer, get_logger, merge_traces,
+                             read_trace_jsonl, write_chrome_trace)
+from repro_torch.obs.http import ObsHTTPServer
+from repro_torch.obs.meters import MetricsRegistry
+from repro_torch.obs.trace import _NOOP_SPAN
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+torch.set_num_threads(2)
+
+
+def _load_trace_report():
+    spec = importlib.util.spec_from_file_location(
+        "trace_report", os.path.join(REPO, "scripts", "trace_report.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# ---------------------------------------------------------------------------
+# tracer
+# ---------------------------------------------------------------------------
+
+
+def test_span_records_tags_and_monotonic_interval():
+    t = Tracer(enabled=True, proc="p1")
+    with t.span("phase", round=3) as sp:
+        sp.end(bytes=17)          # idempotent: __exit__ after end() is a no-op
+    recs = t.drain()
+    assert len(recs) == 1
+    r = recs[0]
+    assert r["kind"] == "span" and r["name"] == "phase" and r["proc"] == "p1"
+    assert r["round"] == 3 and r["bytes"] == 17
+    assert isinstance(r["t0"], int) and r["t1"] >= r["t0"]
+    assert t.drain() == []        # drain cleared the ring
+
+
+def test_event_records_instant():
+    t = Tracer(enabled=True, proc="w")
+    t.event("rx_frame", round=1, client=2, bytes=99, outcome="ok")
+    (r,) = t.drain()
+    assert r["kind"] == "event" and r["outcome"] == "ok" and "t" in r
+
+
+def test_disabled_tracer_is_noop_and_allocation_free():
+    t = Tracer(enabled=False)
+    sp = t.span("x", round=0)
+    assert sp is _NOOP_SPAN       # shared object: no per-call allocation
+    with sp:
+        sp.end(bytes=1)
+    t.event("y")
+    assert t.to_dicts() == []
+
+
+def test_ring_bounds_memory_and_counts_drops():
+    t = Tracer(enabled=True, capacity=4)
+    for i in range(10):
+        t.event("e", i=i)
+    recs = t.drain()
+    assert len(recs) == 4
+    assert [r["i"] for r in recs] == [6, 7, 8, 9]     # oldest evicted
+    assert t.dropped == 6                              # eviction is visible
+
+
+def test_jsonl_roundtrip(tmp_path):
+    t = Tracer(enabled=True)
+    with t.span("a", k="v"):
+        pass
+    t.event("b")
+    path = str(tmp_path / "trace.jsonl")
+    assert t.write_jsonl(path) == 2
+    back = read_trace_jsonl(path)
+    assert [r["name"] for r in back] == ["a", "b"]
+
+
+def test_merge_traces_shifts_worker_clocks():
+    server = [{"kind": "span", "name": "round", "proc": "server",
+               "t0": 1000, "t1": 2000, "round": 0}]
+    worker = {"client-1": [
+        {"kind": "span", "name": "worker.compute", "proc": "client-1",
+         "t0": 100, "t1": 200, "round": 0},
+        {"kind": "event", "name": "ef_push", "proc": "client-1", "t": 300}]}
+    merged = merge_traces(server, worker, {"client-1": 1_000_000})
+    by_name = {r["name"]: r for r in merged}
+    assert by_name["worker.compute"]["t0"] == 1_000_100
+    assert by_name["worker.compute"]["t1"] == 1_000_200
+    assert by_name["ef_push"]["t"] == 1_000_300
+    assert by_name["round"]["t0"] == 1000                 # server untouched
+    starts = [r.get("t0", r.get("t")) for r in merged]
+    assert starts == sorted(starts)
+
+
+def test_chrome_trace_export(tmp_path):
+    recs = [
+        {"kind": "span", "name": "round", "proc": "server",
+         "t0": 5_000_000, "t1": 9_000_000, "round": 0},
+        {"kind": "event", "name": "rx_frame", "proc": "client-0",
+         "t": 6_000_000, "bytes": 4},
+    ]
+    path = str(tmp_path / "t.json")
+    n = write_chrome_trace(recs, path)
+    with open(path) as f:
+        doc = json.load(f)
+    evs = doc["traceEvents"]
+    assert n == len(evs)
+    metas = [e for e in evs if e["ph"] == "M"]
+    assert {m["args"]["name"] for m in metas} == {"server", "client-0"}
+    x = next(e for e in evs if e["ph"] == "X")
+    assert x["ts"] == 0.0 and x["dur"] == 4000.0          # rebased, us units
+    i = next(e for e in evs if e["ph"] == "i")
+    assert i["ts"] == 1000.0 and i["args"]["bytes"] == 4
+
+
+# ---------------------------------------------------------------------------
+# meters
+# ---------------------------------------------------------------------------
+
+
+def test_counter_gauge_histogram():
+    reg = MetricsRegistry()
+    reg.counter("c").inc()
+    reg.counter("c").inc(4)                   # get-or-create: same instance
+    reg.gauge("g").set(2.5)
+    h = reg.histogram("h")
+    for v in range(100):
+        h.observe(float(v))
+    snap = reg.snapshot()
+    assert snap["counters"]["c"] == 5
+    assert snap["gauges"]["g"] == 2.5
+    hs = snap["histograms"]["h"]
+    assert hs["count"] == 100 and hs["min"] == 0.0 and hs["max"] == 99.0
+    assert 45 <= hs["p50"] <= 55 and 90 <= hs["p95"] <= 99
+    assert hs["p99"] >= hs["p95"] >= hs["p50"]
+
+
+def test_histogram_ring_bounded():
+    reg = MetricsRegistry()
+    h = reg.histogram("h", capacity=8)
+    for v in range(100):
+        h.observe(float(v))
+    s = h.summary()
+    assert s["count"] == 100                  # count/sum track everything
+    assert s["p50"] >= 92.0                   # quantiles from the recent ring
+
+
+def test_sources_polled_and_exception_captured():
+    reg = MetricsRegistry()
+    reg.register_source("ok", lambda: {"x": 1})
+
+    def boom():
+        raise RuntimeError("dead source")
+
+    reg.register_source("bad", boom)
+    snap = reg.snapshot()
+    assert snap["sources"]["ok"] == {"x": 1}
+    assert "RuntimeError" in snap["sources"]["bad"]["error"]
+    reg.unregister_source("bad")
+    assert "bad" not in reg.snapshot()["sources"]
+
+
+def test_http_endpoints():
+    reg = MetricsRegistry()
+    reg.counter("hits").inc(3)
+    srv = ObsHTTPServer(port=0, registry=reg)
+    try:
+        with urllib.request.urlopen(f"{srv.url}/healthz", timeout=5) as r:
+            health = json.loads(r.read())
+        assert health["status"] == "ok" and health["uptime_s"] >= 0
+        with urllib.request.urlopen(f"{srv.url}/metrics", timeout=5) as r:
+            snap = json.loads(r.read())
+        assert snap["counters"]["hits"] == 3
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            urllib.request.urlopen(f"{srv.url}/nope", timeout=5)
+        assert ei.value.code == 404
+    finally:
+        srv.stop()
+
+
+# ---------------------------------------------------------------------------
+# structured logger
+# ---------------------------------------------------------------------------
+
+
+def test_logger_prefixes_context():
+    # the "repro_torch" root logger is propagate=False (it owns its stderr
+    # handler), so capture on the named logger itself
+    records = []
+
+    class Collect(logging.Handler):
+        def emit(self, rec):
+            records.append(rec.getMessage())
+
+    log = get_logger("worker", client=7)
+    assert log.logger.name == "repro_torch.worker"
+    h = Collect()
+    log.logger.addHandler(h)
+    try:
+        log.info("hello %d", 42)
+        log.bind(round=3).info("served")
+    finally:
+        log.logger.removeHandler(h)
+    assert records[0] == "[client=7] hello 42"
+    assert records[1] == "[client=7 round=3] served"
+
+
+# ---------------------------------------------------------------------------
+# scripts/trace_report.py over traces the port's tracer writes
+# ---------------------------------------------------------------------------
+
+
+def _synthetic_trace(tmp_path):
+    """tests/test_obs.py's two rounds of three clients, recorded through
+    the port's ``Tracer`` (its clock stepped by hand) and read back from
+    its JSONL: round 0 all delivered plus a filtered duplicate; round 1 a
+    straggler (cid 1), a dead worker (cid 2)."""
+    S = 1_000_000_000                                  # 1s in ns
+    now = {"t": 0}
+    server = Tracer(enabled=True, proc="server", clock=lambda: now["t"])
+    worker = Tracer(enabled=True, proc="client-1", clock=lambda: now["t"])
+
+    def span(tr, name, t0, t1, **tags):
+        now["t"] = t0
+        sp = tr.span(name, **tags)
+        now["t"] = t1
+        sp.end()
+
+    def ev(name, t, **tags):
+        now["t"] = t
+        server.event(name, **tags)
+
+    for rnd, base in ((0, 0), (1, 2 * S)):
+        span(server, "round", base, base + S, round=rnd, deadline_s=0.5)
+        for i, ph in enumerate(("encode", "broadcast", "collect", "ack",
+                                "aggregate")):
+            span(server, f"round.{ph}", base + i * 1000,
+                 base + i * 1000 + 500, round=rnd, phase=ph)
+        for cid in range(3):
+            ev("tx_frame", base + 100, round=rnd, client=cid, bytes=200)
+    for cid in range(3):
+        ev("rx_frame", 500_000, round=0, client=cid, bytes=100, outcome="ok")
+        ev("round.outcome", S, round=0, client=cid, outcome="delivered")
+    ev("rx_frame", 600_000, round=0, client=0, bytes=100, outcome="filtered")
+    ev("rx_frame", 2 * S + 500_000, round=1, client=0, bytes=100,
+       outcome="ok")
+    ev("round.outcome", 3 * S, round=1, client=0, outcome="delivered")
+    ev("round.outcome", 3 * S, round=1, client=1, outcome="undelivered")
+    ev("round.outcome", 3 * S, round=1, client=2, outcome="dead")
+    span(worker, "worker.compute", 2 * S, 2 * S + 300_000_000, round=1)
+    span(worker, "worker.straggle", 2 * S + 300_000_000, 4 * S, round=1,
+         sleep_s=1.7)
+    recs = merge_traces(server.drain(), {"client-1": worker.drain()},
+                        {"client-1": 0})
+    path = tmp_path / "trace.jsonl"
+    with open(path, "w") as f:
+        for r in recs:
+            f.write(json.dumps(r) + "\n")
+    return read_trace_jsonl(str(path)), path
+
+
+def test_trace_report_phases_and_attribution(tmp_path):
+    tr = _load_trace_report()
+    recs, _ = _synthetic_trace(tmp_path)
+    rep = tr.report(recs)
+    assert rep["rounds"] == [0, 1]
+    assert rep["phase_complete"] and rep["missing_phases"] == {}
+    assert rep["phases"]["round"]["count"] == 2
+    assert abs(rep["phases"]["round"]["p50"] - 1.0) < 1e-6    # 1s spans
+    att = rep["attribution"]
+    assert att["stragglers"] == {1: [1]}
+    assert att["dead_workers"] == {2: [1]}
+    assert att["frame_lost"] == {}            # the filtered frame was a dup
+    causes = {(c["round"], c["client"]): c["cause"]
+              for c in att["undelivered"]}
+    assert causes == {(1, 1): "straggler", (1, 2): "dead"}
+
+
+def test_trace_report_detects_missing_phase(tmp_path):
+    tr = _load_trace_report()
+    recs, _ = _synthetic_trace(tmp_path)
+    recs = [r for r in recs
+            if not (r.get("name") == "round.ack" and r.get("round") == 1)]
+    rep = tr.report(recs)
+    assert not rep["phase_complete"]
+    assert rep["missing_phases"] == {"1": ["round.ack"]}
+
+
+def test_trace_report_reconciliation_exact_and_mismatch(tmp_path):
+    tr = _load_trace_report()
+    recs, _ = _synthetic_trace(tmp_path)
+    good = {"uplink": {"total_bytes": 500}, "downlink": {"total_bytes": 1200},
+            "overhead_up": 77, "overhead_down": 88}
+    rec = tr.reconcile(recs, good)
+    assert rec["uplink_exact"] and rec["downlink_exact"]
+    assert rec["overhead_up"] == 77 and rec["overhead_down"] == 88
+    bad = {"uplink": {"total_bytes": 501}, "downlink": {"total_bytes": 1200}}
+    rec = tr.reconcile(recs, bad)
+    assert not rec["uplink_exact"] and rec["downlink_exact"]
+
+
+def test_trace_report_replay_summary(tmp_path):
+    tr = _load_trace_report()
+    recs, _ = _synthetic_trace(tmp_path)
+    rep = tr.replay_summary(recs)
+    assert rep["schema"] == "repro.trace-replay/v1"
+    assert [r["round"] for r in rep["rounds"]] == [0, 1]
+    r0 = rep["rounds"][0]
+    assert r0["wall_s"] == 1.0 and r0["deadline_s"] == 0.5
+    assert r0["bytes_up"] == 400 and r0["bytes_down"] == 600
+    assert r0["clients"]["0"]["outcome"] == "delivered"
+    assert abs(r0["clients"]["0"]["arrival_s"] - 0.0005) < 1e-9
+    r1 = rep["rounds"][1]
+    assert r1["clients"]["1"]["outcome"] == "undelivered"
+    assert r1["clients"]["1"]["arrival_s"] is None
+
+
+def test_trace_report_cli(tmp_path):
+    tr = _load_trace_report()
+    _, trace = _synthetic_trace(tmp_path)
+    ledger = tmp_path / "ledger.json"
+    ledger.write_text(json.dumps(
+        {"uplink": {"total_bytes": 500}, "downlink": {"total_bytes": 1200},
+         "overhead_up": 0, "overhead_down": 0}))
+    replay = tmp_path / "replay.json"
+    rc = tr.main([str(trace), "--ledger", str(ledger),
+                  "--replay", str(replay), "--json"])
+    assert rc == 0
+    assert json.loads(replay.read_text())["rounds"]
+
+
+# ---------------------------------------------------------------------------
+# ledger overhead surfacing
+# ---------------------------------------------------------------------------
+
+
+def test_ledger_roundtrips_overhead_and_defaults_old_snapshots():
+    ch = InProcessChannel()
+    ch.overhead_up += 123
+    ch.overhead_down += 456
+    led = ch.ledger()
+    assert led["overhead_up"] == 123 and led["overhead_down"] == 456
+    ch2 = InProcessChannel()
+    ch2.restore_ledger(led)
+    assert ch2.overhead_up == 123 and ch2.overhead_down == 456
+    # a ledger without overhead keys: restore defaults them to 0
+    old = {"uplink": led["uplink"], "downlink": led["downlink"]}
+    ch3 = InProcessChannel()
+    ch3.restore_ledger(old)
+    assert ch3.overhead_up == 0 and ch3.overhead_down == 0
+
+
+def test_live_history_surfaces_overhead():
+    """The mirror of the reference's live-result test, on the port's
+    checkpointed history: a live round's overhead rides through the JSON
+    form a recovery point carries, and a record without it reads 0."""
+    import numpy as np
+
+    history = [{"round": 0, "wall_s": 0.5, "participate": np.ones(2, bool),
+                "delivered": np.array([True, False]), "retries": 1,
+                "bytes_up": 1000, "bytes_down": 2000, "overhead_up": 50,
+                "overhead_down": 60, "dead": [1],
+                "losses": {0: 1.0, 1: 3.0}}]
+    js = json.loads(json.dumps(train_mod._history_to_json(history)))
+    assert js[0]["overhead_up"] == 50 and js[0]["overhead_down"] == 60
+    back = train_mod._history_from_json(js)
+    assert back[0]["losses"] == {0: 1.0, 1: 3.0}
+    assert back[0]["delivered"].tolist() == [True, False]
+    old = dict(history[0])
+    del old["overhead_up"], old["overhead_down"]
+    js = train_mod._history_to_json([old])
+    assert js[0]["overhead_up"] == 0 and js[0]["overhead_down"] == 0
+
+
+# ---------------------------------------------------------------------------
+# a live traced socket run of the port's trainer
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.transport(timeout=240)
+def test_traced_socket_run_reconciles_with_its_ledger(tmp_path):
+    """``--transport socket --trace --metrics-port 0`` over 2 CPU workers:
+    /healthz and /metrics answer during the run, every round shows every
+    phase, and the bytes the trace saw equal the ledger's exactly
+    (``scripts/trace_report.py`` as a subprocess)."""
+    import socket
+
+    from repro_torch.obs import get_tracer
+
+    with socket.socket() as s:                 # a free port for the run
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = tmp_path / "run"
+    fetched = {}
+
+    def poll():
+        # /healthz, then /metrics once the transport's ledger is a source
+        url = f"http://127.0.0.1:{port}"
+        end = time.monotonic() + 120
+        while time.monotonic() < end and "metrics" not in fetched:
+            try:
+                with urllib.request.urlopen(f"{url}/healthz",
+                                            timeout=2) as r:
+                    fetched["healthz"] = json.loads(r.read())
+                with urllib.request.urlopen(f"{url}/metrics",
+                                            timeout=2) as r:
+                    snap = json.loads(r.read())
+                if "transport.ledger" in snap["sources"]:
+                    fetched["metrics"] = snap
+            except OSError:
+                pass
+            time.sleep(0.05)
+
+    before = get_tracer()
+    t = threading.Thread(target=poll, daemon=True)
+    t.start()
+    train_mod.main([
+        "--compressor", "threesfc", "--wire", "codec",
+        "--transport", "socket", "--rounds", "3", "--clients", "2",
+        "--local-steps", "2", "--batch", "8", "--train-size", "128",
+        "--eval-every", "1", "--device", "cpu", "--trace",
+        "--metrics-port", str(port), "--round-deadline-s", "60",
+        "--out", str(out)])
+    t.join(5)
+    assert get_tracer() is before          # the run's tracer ended with it
+    assert fetched["healthz"]["status"] == "ok"
+    assert "metrics" in fetched
+    rows = [json.loads(l) for l in open(out / "metrics.jsonl")]
+    assert [r["round"] for r in rows] == [1, 2, 3]
+    assert all(r["delivered"] == 2 for r in rows)
+    p = subprocess.run(
+        [sys.executable, os.path.join(REPO, "scripts", "trace_report.py"),
+         str(out / "trace.jsonl"), "--ledger", str(out / "ledger.json"),
+         "--json"], capture_output=True, text=True, timeout=60)
+    assert p.returncode == 0, p.stderr
+    rep = json.loads(p.stdout)
+    assert rep["rounds"] == [0, 1, 2]
+    assert rep["phase_complete"], rep["missing_phases"]
+    rec = rep["reconciliation"]
+    assert rec["uplink_exact"] and rec["downlink_exact"], rec
+    assert rec["uplink_billed"] > 0 and rec["overhead_up"] > 0
+    # the workers' own spans were merged onto the server's clock
+    names = {r["name"] for r in read_trace_jsonl(str(out / "trace.jsonl"))}
+    assert {"worker.compute", "worker.decode", "worker.send"} <= names
+    assert (out / "trace.chrome.json").exists()
+    assert (out / "meters.json").exists()
+
+
+def test_serve_metrics_port_serves_the_meters(monkeypatch):
+    """``repro_torch.launch.serve --metrics-port`` serves the serve meters
+    (prefill and decode-step times, token counters) after the run, until
+    interrupted."""
+    import socket
+
+    from repro_torch.launch import serve as serve_mod
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    got = {}
+
+    def sleep(seconds):
+        # the wait after the run: read the endpoints, then ctrl-c
+        url = f"http://127.0.0.1:{port}"
+        with urllib.request.urlopen(f"{url}/healthz", timeout=5) as r:
+            got["healthz"] = json.loads(r.read())
+        with urllib.request.urlopen(f"{url}/metrics", timeout=5) as r:
+            got["metrics"] = json.loads(r.read())
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(serve_mod.time, "sleep", sleep)
+    res = serve_mod.main(["--device", "cpu", "--batch", "2",
+                          "--prompt-len", "8", "--gen", "3",
+                          "--metrics-port", str(port)])
+    assert res.tokens.shape == (2, 3)
+    assert got["healthz"]["status"] == "ok"
+    snap = got["metrics"]
+    assert snap["counters"]["serve.tokens"] >= 6
+    assert snap["counters"]["serve.prefills"] >= 1
+    assert snap["gauges"]["serve.batch"] == 2
+    assert snap["histograms"]["serve.decode_step_s"]["count"] >= 2
+
+
+def test_trainer_profile_window_writes_a_chrome_trace(tmp_path):
+    """``--profile DIR --profile-window 1:3`` captures rounds [1, 3) with
+    ``torch.profiler`` and writes them as one Chrome trace."""
+    prof = tmp_path / "prof"
+    train_mod.main(["--compressor", "threesfc", "--rounds", "4",
+                    "--clients", "2", "--local-steps", "1", "--batch", "8",
+                    "--train-size", "128", "--eval-every", "1",
+                    "--device", "cpu", "--profile", str(prof),
+                    "--profile-window", "1:3", "--out", str(tmp_path)])
+    assert sorted(os.listdir(prof)) == ["rounds_1_3.json"]
+    with open(prof / "rounds_1_3.json") as f:
+        doc = json.load(f)
+    assert doc["traceEvents"]

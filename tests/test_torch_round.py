@@ -330,8 +330,14 @@ def test_engine_batches_are_a_function_of_seed_round_client():
 
 def test_runconfig_validation():
     fl = FLConfig()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    # the socket transport is ported: it takes the codec wire, as the
+    # reference's does, and no schedule-driven faults
+    with pytest.raises(ValueError, match="wire='codec'"):
         RunConfig(fl=fl, transport="socket")
+    assert RunConfig(fl=fl, transport="socket",
+                     wire="codec").retry_policy().max_retries == 2
+    with pytest.raises(ValueError, match="fault knobs"):
+        RunConfig(fl=fl, transport="socket", wire="codec", drop_rate=0.1)
     # the shard_map fan-out is ported: it needs a mesh
     # (tests/test_torch_sharding.py holds it on real meshes)
     with pytest.raises(ValueError, match="explicit mesh"):
@@ -356,7 +362,12 @@ def test_runconfig_validation():
                {"participation_rate": 0.0}, {"participation_rate": 1.5},
                {"drop_rate": 1.0}, {"drop_rate": -0.1},
                {"straggler_rate": 1.5, "staleness_max": 1},
-               {"staleness_max": -1}):
+               {"staleness_max": -1},
+               # the reference's transport and checkpoint validations
+               {"round_deadline_s": 0.0}, {"recv_timeout_s": 0.0},
+               {"recv_backoff": 0.5}, {"transport_retries": -1},
+               {"heartbeat_s": 0.0}, {"liveness_timeout_s": 0.5},
+               {"ckpt_every": -1}):
         with pytest.raises(ValueError):
             RunConfig(fl=fl, **kw)
         with pytest.raises(ValueError):
