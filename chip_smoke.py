@@ -185,11 +185,33 @@ Phases, in order; any failure exits non-zero:
              in-process round's, the workers' boot times, the bytes per
              round and its own wall.
 
+19. LM families — (a) ``repro_torch.launch.serve.main`` on tinyllama-1.1b at
+             its published widths (22 layers, d_model 2,048, bf16
+             activations), batch 4, prompt 2,048, 16 tokens: no kernel
+             launches, finite logits, then one more prefill profiled;
+             (b) ``train_lm`` on tinyllama-1.1b at full width (d =
+             1,100,048,384) with phase 16's settings and
+             ``--fused-decode``, 2 rounds: exactly 16 B1 and 8 B2 launches
+             and no other, then a round profiled, and one round cut to 2
+             layers, f32, on the card and the CPU under phase 16's rule;
+             (c) the other eight architectures at their published widths
+             in f32 (mistral-nemo, qwen3-moe and moonshot cut to 4
+             layers, llama4-scout to 1): the reference's serving contract
+             at batch 2 x 1,024 within 2e-3 (recurrentgemma also at 2,560
+             over its 2,048 window; MoE capacity raised until no
+             (token, slot) drops), and one 3SFC encode each (S + 1 B1 tree
+             calls, the server's decode at the reference's bound;
+             llama4-scout's in bf16); (d) every architecture's smoke
+             config in f32, card vs CPU: loss, gradient, prefill logits
+             and 4 decode steps within 1e-4, MoE routing bitwise.
+
 Phase 7 adds the full-width mamba2 round's profile and B1, B2 (with
-``torch.addcmul`` beside), B3a and B3b at mamba2's d, and the wall time of
+``torch.addcmul`` beside), B3a and B3b at mamba2's d, the wall time of
 a main-path round under phase 17 (a) beside the single-process round, in
-turns. The phases run in the order 1-6, 8-18, 7, so that the times can
-report each kernel's launches on its path. The last lines are the run's
+turns, and phase 19's tinyllama prefill and round profiles (taken there,
+while their models were on the card). The phases run in the order 1-6,
+8-19, 7, so that the times can report each kernel's launches on its
+path. The last lines are the run's
 wall time from the script's start, the card's name and power limit, one
 JSON object with every kernel's numbers, the list of kernels, and
 ``{"ok": true, "device": {...}}``.
@@ -198,6 +220,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import itertools
 import json
 import math
@@ -219,12 +242,13 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.comm import Codec, frame  # noqa: E402
 from repro_torch.comm.transport import (SocketServer,  # noqa: E402
                                         spawn_local_workers)
-from repro_torch.configs.base import (CompressorConfig, FLConfig,  # noqa: E402
-                                     get_config)
+from repro_torch.configs.base import (ARCH_IDS, CompressorConfig,  # noqa: E402
+                                     FLConfig, get_config, get_smoke_config)
 from repro_torch.configs.run import RunConfig  # noqa: E402
 from repro_torch.core import baselines, flat  # noqa: E402
 from repro_torch.core import error_feedback as ef  # noqa: E402
@@ -258,10 +282,12 @@ from repro_torch.launch.worker import (launch_counts,  # noqa: E402
                                        vision_setup)
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.build import (build_model, syn_loss_fn,  # noqa: E402
                                       syn_spec_for, vision_syn_spec)
 from repro_torch.models.cnn import (DATASETS, MNIST_SPEC,  # noqa: E402
                                     make_mlp, make_paper_model)
+from repro_torch.models.encdec import EncDec  # noqa: E402
 from repro_torch.models.transformer import LM  # noqa: E402
 from repro_torch.profiling import (call_ms, graph_ms,  # noqa: E402
                                   round_profile)
@@ -379,6 +405,37 @@ RESUME_ROUNDS, RESUME_CUT, RESUME_EVERY = 4, 2, 2
 LIVE_BOOT_S = 240.0
 LIVE_WARM = RetryPolicy(max_retries=0, recv_timeout_s=LIVE_BOOT_S,
                         max_timeout_s=LIVE_BOOT_S)
+# phase 19: tinyllama-1.1b served (phase 9's shape) and trained (phase
+# 16's settings; --fused-decode: in float mode a round holds the N
+# reconstructed trees as well, ~18 trees of 4.4 GB, over one card)
+TL_ARCH = "tinyllama-1.1b"
+TL_D = 1_100_048_384
+TL_FLAGS = ("--fused-decode",)
+# (c): the other architectures at their published widths, f32, depth cut
+# only where one card's 80 GB forces it (params ~273 M, 623 M, 587 M and
+# 2.2 B a layer, besides 1.3, 0.6, 0.7 and 2.1 B of embeddings and head),
+# the reference's serving contract (tests/test_serving.py) at batch 2 x
+# 1,024 and recurrentgemma's ring wrapped at 2,560 over its 2,048 window
+FAMILY_ARCHS = ("qwen1.5-0.5b", "internvl2-1b", "recurrentgemma-2b",
+                "seamless-m4t-medium", "mistral-nemo-12b",
+                "qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b",
+                "llama4-scout-17b-a16e")
+FAMILY_DEPTH = {"mistral-nemo-12b": 4, "qwen3-moe-30b-a3b": 4,
+                "moonshot-v1-16b-a3b": 4, "llama4-scout-17b-a16e": 1}
+FAMILY_BATCH, FAMILY_T, RG_WRAP_T = 2, 1024, 2560
+SERVE_CONTRACT_TOL = dict(rtol=2e-3, atol=2e-3)
+# the contract needs no dropped (token, slot): the reference's test raises
+# the capacity factor to E, whose (B, S·k, E, C) one-hots at qwen3-moe's
+# published widths would take 69 GB; here it starts at MOE_CF0 and is
+# raised to what the recorded routing needs
+MOE_CF0 = 2.0
+# the encode's target: the loss gradient on one sequence of this length;
+# llama4-scout's encode in f32 would need ~5 trees of 17 GB
+FAMILY_ENCODE_SEQ = 64
+ENCODE_BF16 = ("llama4-scout-17b-a16e",)
+# (d): smoke configs, card vs CPU, at the CPU tests' block bound
+SMOKE_TOL = dict(rtol=1e-4, atol=1e-4)
+SMOKE_T, SMOKE_DECODE = 16, 4
 # B1-B3 at mamba2's d in CUDA graphs: calls per graph and replays
 LM_TIME_REPS, LM_TIME_REPLAYS = 10, 11
 # vectors of 4 Mi + 5 elements the B5/B6 timing rotates over: 6 x 16.8 MB
@@ -1602,10 +1659,15 @@ def injected_schedule(r: int, n: int) -> faults.FaultSchedule:
                                 faults.staleness_weight(delay))
 
 
+def state_to(st: FLState, device) -> FLState:
+    move = lambda t: flat.tree_map(lambda x: x.to(device), t)
+    return FLState(move(st.params), move(st.ef), st.round,
+                   None if st.buf is None else move(st.buf),
+                   None if st.buf_w is None else st.buf_w.to(device))
+
+
 def state_to_cpu(st: FLState) -> FLState:
-    return FLState(to_cpu(st.params), to_cpu(st.ef), st.round,
-                   None if st.buf is None else to_cpu(st.buf),
-                   None if st.buf_w is None else st.buf_w.cpu())
+    return state_to(st, torch.device("cpu"))
 
 
 def tree_bits_equal(a, b) -> bool:
@@ -1880,11 +1942,12 @@ def phase_cnns(out_dir: str, dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def lm_args(clients: int, batch: int, *flags: str):
-    """The trainer's flags for a mamba2-370m run of ``clients`` clients of
+def lm_args(clients: int, batch: int, *flags: str,
+            arch: str = "mamba2-370m"):
+    """The trainer's flags for an ``arch`` run of ``clients`` clients of
     ``batch`` sequences, K = 1, local lr LM_LR, then ``flags``."""
     return train.parse_args([
-        "--arch", "mamba2-370m", "--clients", str(clients), "--local-steps",
+        "--arch", arch, "--clients", str(clients), "--local-steps",
         "1", "--batch", str(batch), "--lr", str(LM_LR), *flags])
 
 
@@ -2118,14 +2181,15 @@ def phase_lm_routes(dev) -> float:
     return rel_loss
 
 
-def phase_lm_cpu(dev) -> None:
-    phase(f"mamba2 round at full width cut to {LM_CPU_LAYERS} layers, "
-          f"float32, N={LM_CPU_N}, K=1, S={LM_CPU_SEQ}: card vs CPU")
-    cfg = get_config("mamba2-370m").replace(num_layers=LM_CPU_LAYERS,
-                                            dtype="float32")
+def phase_lm_cpu(dev, arch: str = "mamba2-370m", *flags: str) -> None:
+    phase(f"{arch} round at full width cut to {LM_CPU_LAYERS} layers, "
+          f"float32, N={LM_CPU_N}, K=1, S={LM_CPU_SEQ}{' ' if flags else ''}"
+          f"{' '.join(flags)}: card vs CPU")
+    cfg = get_config(arch).replace(num_layers=LM_CPU_LAYERS, dtype="float32")
     cpu = torch.device("cpu")
-    model, strategy, run = train.lm_setup(lm_args(LM_CPU_N, LM_CPU_BATCH),
-                                          cfg, LM_COMP, LM_CPU_SEQ)
+    model, strategy, run = train.lm_setup(
+        lm_args(LM_CPU_N, LM_CPU_BATCH, *flags, arch=arch), cfg, LM_COMP,
+        LM_CPU_SEQ)
     one_round = build_fl_round(model.loss, strategy, run)
     params = model.init(gen(cpu, 71))
     batches = lm_batches(cpu, cfg, LM_CPU_N, LM_CPU_BATCH, LM_CPU_SEQ, 72)
@@ -2163,11 +2227,13 @@ def phase_lm_cpu(dev) -> None:
           f"the nudge's))")
     bound = max(ROUND_FLOOR, ROUND_FACTOR * gap_nudge)
     if not gap_cpu <= bound:
-        raise AssertionError(f"mamba2 round: the CPU's update is {gap_cpu:.3e} "
-                             f"from the card's, over {bound:.3e}")
-    assert_close("mamba2 round, card vs CPU params", s_card.params,
+        raise AssertionError(f"{arch} round: the CPU's update is "
+                             f"{gap_cpu:.3e} from the card's, over "
+                             f"{bound:.3e}")
+    assert_close(f"{arch} round, card vs CPU params", s_card.params,
                  s_cpu.params, PARAM_TOL)
-    assert_close("mamba2 round, card vs CPU EF", s_card.ef, s_cpu.ef, EF_TOL)
+    assert_close(f"{arch} round, card vs CPU EF", s_card.ef, s_cpu.ef,
+                 EF_TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -2790,9 +2856,11 @@ def lm_time_rows(dev) -> dict:
     return rows
 
 
-def phase_times(dev, launched, errs, rounds):
+def phase_times(dev, launched, errs, families, rounds):
     """``launched`` holds each kernel's launches on its path's run;
-    ``rounds`` is [(label, one_round)] to profile."""
+    ``families`` phase 19's results (its profiles taken there, while its
+    models were on the card); ``rounds`` is [(label, one_round)] to
+    profile."""
     phase("times at the main path's shape")
     g = gen(dev, 13)
     x = torch.randn(MLP_D, generator=g, device=dev)
@@ -2864,6 +2932,19 @@ def phase_times(dev, launched, errs, rounds):
     for name, extra in lm_time_rows(dev).items():
         next(r for r in rows if r["name"] == name).update(extra)
     print(f"  (mamba2's rows in {time.perf_counter() - t0:.1f} s)")
+    tl = families["train"]
+    for row in rows:
+        if row["name"] in tl["launches"]:
+            row["launches_tinyllama_train"] = tl["launches"][row["name"]]
+    for label, key in ((f"{TL_ARCH} warm prefill (phase 19 (a), batch "
+                        f"{SERVE_BATCH}, prompt {SERVE_PROMPT})", "serve"),
+                       (f"{TL_ARCH} 3SFC round at full width (phase 19 (b),"
+                        f" N={LM_N}, K=1, B={LM_BATCH}, S={LM_SEQ}, fused "
+                        f"decode)", "train")):
+        print_profile(label, families[key])
+        print(f"    peak device memory {families[key]['peak_gib']:.2f} GiB")
+    print(f"    {TL_ARCH} decode {families['serve']['decode_ms_per_step']:.3f}"
+          f" ms per step (batch {SERVE_BATCH})")
     for label, one_round in rounds:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3330,6 +3411,427 @@ def phase_host_layers(sfc_state: FLState, sign_state: FLState, dev) -> dict:
             "trace_reconciliation": rec, "phase_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the attention, MoE, RG-LRU and enc-dec LM families
+# ---------------------------------------------------------------------------
+
+
+def peak_gib() -> float:
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def free_card() -> float:
+    """Collects garbage (cycles too) and returns the cache to the card;
+    the GiB still allocated."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 2**30
+
+
+def phase_tl_serve() -> dict:
+    """(a): tinyllama-1.1b served at its published widths through the
+    entry point; then one more prefill profiled."""
+    phase(f"(a) serve: repro_torch.launch.serve.main, {TL_ARCH} full width, "
+          f"batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, {SERVE_GEN} tokens, "
+          f"bf16 activations")
+    argv = ["--arch", TL_ARCH, "--size", "full", "--batch", str(SERVE_BATCH),
+            "--prompt-len", str(SERVE_PROMPT), "--gen", str(SERVE_GEN),
+            "--device", "cuda"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = serve.main(argv)
+    torch.cuda.synchronize()
+    launched, peak = counts(), peak_gib()
+    if launched != only():
+        raise AssertionError(f"{TL_ARCH} serve launched kernels: {launched}")
+    if not bool(torch.isfinite(res.logits).all()):
+        raise AssertionError(f"{TL_ARCH}: non-finite logits")
+    if tuple(res.tokens.shape) != (SERVE_BATCH, SERVE_GEN):
+        raise AssertionError(f"tokens {tuple(res.tokens.shape)}")
+    if res.model.cfg != get_config(TL_ARCH):
+        raise AssertionError(f"not the full config: {res.model.cfg}")
+    steps = SERVE_GEN - 1
+    d = flat.tree_size(res.params)
+    print(f"  d={d}; first prefill {res.prefill_s * 1e3:.3f} ms (cold), "
+          f"{steps} decode steps in {res.decode_s * 1e3:.3f} ms: "
+          f"{res.decode_s / steps * 1e3:.3f} ms per step, "
+          f"{SERVE_BATCH * steps / res.decode_s:.1f} tok/s; peak device "
+          f"memory {peak:.2f} GiB; launches {launched}")
+    with torch.inference_mode():
+        prof = round_profile(lambda: res.model.prefill(
+            res.params, res.prompt, SERVE_PROMPT + SERVE_GEN))
+    print_profile(f"{TL_ARCH} warm prefill (batch {SERVE_BATCH}, prompt "
+                  f"{SERVE_PROMPT})", prof)
+    return {**prof, "peak_gib": peak,
+            "decode_ms_per_step": res.decode_s / steps * 1e3,
+            "cold_prefill_ms": res.prefill_s * 1e3}
+
+
+def phase_tl_train(out_dir: str, dev) -> dict:
+    """(b): federated 3SFC+EF of tinyllama-1.1b at its published widths
+    through train_lm, phase 16's settings, fused decode."""
+    phase(f"(b) {TL_ARCH} federated training at full width: "
+          f"repro_torch.launch.train.train_lm, 3SFC+EF, --fused-decode, "
+          f"N={LM_N}, K=1, B={LM_BATCH}, S={LM_SEQ}, {LM_ROUNDS} rounds")
+    cfg = get_config(TL_ARCH)
+    args = lm_args(LM_N, LM_BATCH, *TL_FLAGS, "--rounds", str(LM_ROUNDS),
+                   "--eval-every", "1", "--out", out_dir, arch=TL_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reset_counts()
+    state, hist = train.train_lm(args, cfg, LM_COMP, LM_SEQ, LM_NUM_SEQS)
+    torch.cuda.synchronize()
+    launched, wall, peak = counts(), time.perf_counter() - t0, peak_gib()
+    want = only(fused_cosine=LM_ROUNDS * LM_N * (LM_COMP.syn_steps + 1),
+                ef_update=LM_ROUNDS * LM_N)
+    if launched != want:
+        raise AssertionError(f"{TL_ARCH} 3SFC rounds: launches {launched}, "
+                             f"expected {want}")
+    d = flat.tree_size(state.params)
+    spec = syn_spec_for(cfg, LM_COMP)
+    payload = spec.floats + 1
+    m = hist.metrics
+    if d != TL_D or any(float(p) != payload for p in m.payload_floats):
+        raise AssertionError(f"d={d} (expected {TL_D}), payload "
+                             f"{m.payload_floats} (expected {payload})")
+    if not (np.isfinite(m.loss).all() and np.isfinite(m.cosine).all()):
+        raise AssertionError(f"non-finite round metrics: {m}")
+    print(f"  d={d}, payload {payload:.0f} floats ({spec.x_shape} inputs, "
+          f"rank-{LM_COMP.soft_label_rank} labels, s): {d / payload:.1f}x; "
+          f"num_micro {train.num_micro_for(LM_BATCH, LM_SEQ)}; losses "
+          f"{m.loss.tolist()}, mean cosines "
+          f"{m.cosine.mean(axis=1).tolist()}; {wall:.2f} s for "
+          f"{LM_ROUNDS} rounds (first use included); launches {launched}; "
+          f"peak device memory {peak:.2f} GiB")
+    model, strategy, run = train.lm_setup(
+        lm_args(LM_N, LM_BATCH, *TL_FLAGS, arch=TL_ARCH), cfg, LM_COMP,
+        LM_SEQ)
+    one_round = build_fl_round(model.loss, strategy, run)
+    inputs = lm_batches(dev, cfg, LM_N, LM_BATCH, LM_SEQ, 83)
+    torch.cuda.reset_peak_memory_stats()
+    prof = round_profile(lambda: one_round(state, inputs, 0), KERNEL_NAMES,
+                         walls=LM_ROUNDS)
+    peak = max(peak, peak_gib())
+    print_profile(f"{TL_ARCH} 3SFC round at full width (N={LM_N}, K=1, "
+                  f"B={LM_BATCH}, S={LM_SEQ}, fused decode, round "
+                  f"{state.round})", prof)
+    return {**prof, "peak_gib": peak, "d": d, "payload_floats": payload,
+            "train_wall_s": wall, "launches": launched}
+
+
+@contextlib.contextmanager
+def moe_routing(keep_dispatch: bool = False):
+    """Records every MoE call's [top_e] while it is open (and its dispatch
+    one-hots with ``keep_dispatch``)."""
+    rec = []
+    router, dc = moe_mod._router, moe_mod.dispatch_combine
+
+    def routed(p, x, k):
+        out = router(p, x, k)
+        rec.append([out[1]])
+        return out
+
+    def dispatched(top_w, top_e, E, C):
+        out = dc(top_w, top_e, E, C)
+        if keep_dispatch:
+            rec[-1].append(out[0])
+        return out
+
+    moe_mod._router, moe_mod.dispatch_combine = routed, dispatched
+    try:
+        yield rec
+    finally:
+        moe_mod._router, moe_mod.dispatch_combine = router, dc
+
+
+def needed_capacity(rec, cfg) -> float:
+    """The least capacity factor at which none of the recorded calls drops
+    a (token, slot): each expert's largest queue over E / (k·S)."""
+    need = 0.0
+    for top_e, *_ in rec:
+        B, S, k = top_e.shape
+        loads = F.one_hot(top_e.reshape(B, S * k), cfg.num_experts).sum(1)
+        need = max(need, int(loads.max()) * cfg.num_experts / (k * S))
+    return need
+
+
+def contract_logits(model, params, tokens, cache_len: int, extra=None):
+    """The reference's serving contract: (decode logits of token T-1 after
+    a prefill of T-1 tokens, the teacher-forced forward's logits at T-1).
+    ``extra`` is an enc-dec model's frames or an LM's prefix embeddings."""
+    T = tokens.shape[1]
+    eps = model.cfg.norm_eps
+    with torch.inference_mode():
+        if isinstance(model, EncDec):
+            memory = model.encode(params, extra)
+            x = layers.embed(params["embed"], tokens, model.dtype)
+            h = model._decoder_hidden(params, x, memory)
+            want = layers.lm_head(params["lm_head"], h[:, -1, :])
+            del memory, x, h
+            _, cache, t0 = model.prefill(params, extra, tokens[:, :T - 1],
+                                         cache_len)
+        else:
+            h, _ = model.forward_hidden(params, tokens, extra)
+            h = layers.rmsnorm(params["final_norm"], h[:, -1, :], eps)
+            want = model._logits(params, h)
+            del h
+            _, cache, t0 = model.prefill(params, tokens[:, :T - 1],
+                                         cache_len, extra)
+        got, _ = model.decode_step(params, cache, tokens[:, T - 1], t0)
+    return got, want
+
+
+def check_contract(label: str, got, want) -> float:
+    err = float((got - want).abs().max())
+    ok = bool(torch.isfinite(got).all()) and torch.allclose(
+        got, want, **SERVE_CONTRACT_TOL)
+    print(f"  {label}: decode vs teacher-forced forward, max |diff| "
+          f"{err:.3e} over |logits| <= {float(want.abs().max()):.3f} "
+          f"(rtol/atol {SERVE_CONTRACT_TOL['rtol']}): {ok}")
+    if not ok:
+        raise AssertionError(f"{label}: serving contract broken")
+    return err
+
+
+def family_extra(model, cfg, batch: int, g: torch.Generator):
+    """An enc-dec model's frames or a VLM's prefix embeddings, else None."""
+    if isinstance(model, EncDec) or cfg.num_mm_tokens:
+        return torch.randn((batch, cfg.num_mm_tokens, cfg.d_model),
+                           generator=g, device=g.device)
+    return None
+
+
+def loss_grad(model, params, batch):
+    """(loss, its gradient tree) at ``params``."""
+    leaves, treedef = tree_flatten(params)
+    w = [p.detach().requires_grad_(True) for p in leaves]
+    loss = model.loss(tree_unflatten(treedef, w), batch)
+    return loss.detach(), tree_unflatten(treedef, list(
+        torch.autograd.grad(loss, w)))
+
+
+def family_encode(label: str, model, cfg, params, g) -> None:
+    """One 3SFC encode through the model's syn_loss (grad-of-grad), its
+    target the loss gradient on one FAMILY_ENCODE_SEQ-token sequence (as
+    tests/test_models_smoke.py encodes; recurrentgemma's a_param holds
+    +inf, so an SGD step's update w - w' is NaN there): S + 1 tree calls
+    of B1 (one launch per table of 64 leaves: two for recurrentgemma's 71),
+    finite, and the server's decode s·∇F at the reference's smoke
+    bound."""
+    tokens = torch.randint(0, cfg.vocab_size, (1, FAMILY_ENCODE_SEQ),
+                           generator=g, device=g.device)
+    batch = {"tokens": tokens}
+    extra = family_extra(model, cfg, 1, g)
+    if extra is not None:
+        batch["frames" if isinstance(model, EncDec) else
+              "prefix_embeds"] = extra
+    _, target = loss_grad(model, params, batch)
+    syn0 = init_syn(g, syn_spec_for(cfg, LM_COMP))
+    loss_fn = syn_loss_fn(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = threesfc.encode(loss_fn, params, target, syn0,
+                          steps=LM_COMP.syn_steps, lr=LM_COMP.syn_lr)
+    torch.cuda.synchronize()
+    launched, peak = counts(), peak_gib()
+    del target
+    # one B1 launch per table of up to 64 leaves, per tree call
+    tables = len(leaf_table.segment_plan(
+        [t.numel() for t in flat.tree_leaves(params)]))
+    want = only(fused_cosine=(LM_COMP.syn_steps + 1) * tables)
+    if launched != want:
+        raise AssertionError(f"{label} encode: launches {launched}, "
+                             f"expected {want}")
+    if not (math.isfinite(float(res.cosine)) and math.isfinite(float(res.s))):
+        raise AssertionError(f"{label} encode: cosine {float(res.cosine)}, "
+                             f"s {float(res.s)}")
+    server = threesfc.decode(loss_fn, params, res.syn, res.s)
+    worst = 0.0
+    for a, b in zip(flat.tree_leaves(res.gw), flat.tree_leaves(server)):
+        r = (res.s * a.float()).to(b.dtype)
+        if not torch.allclose(r, b, rtol=1e-4, atol=1e-6):
+            raise AssertionError(f"{label}: server decode differs from "
+                                 f"the client's s·gw")
+        worst = max(worst, float((r - b).abs().max()))
+    print(f"  {label} 3SFC encode (S={LM_COMP.syn_steps}, grad-of-grad): "
+          f"cosine {float(res.cosine):+.4f}, s {float(res.s):.4e}, "
+          f"launches {launched}, server decode within {worst:.2e} of s·gw; "
+          f"peak device memory {peak:.2f} GiB")
+
+
+def phase_families(dev) -> dict:
+    """(c): every other architecture at its published widths, f32."""
+    phase(f"(c) the other architectures at their published widths, f32: "
+          f"serving contract at batch {FAMILY_BATCH} x {FAMILY_T} and one "
+          f"3SFC encode each; depth cuts {FAMILY_DEPTH}")
+    out = {}
+    for i, arch in enumerate(FAMILY_ARCHS):
+        t0 = time.perf_counter()
+        cfg = get_config(arch).replace(dtype="float32")
+        cut = FAMILY_DEPTH.get(arch)
+        if cut:
+            cfg = cfg.replace(num_layers=cut)
+        g = gen(dev, 101 + i)
+        model = build_model(cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params = model.init(g)
+        d = flat.tree_size(params)
+        tokens = torch.randint(0, cfg.vocab_size, (FAMILY_BATCH, FAMILY_T),
+                               generator=g, device=dev)
+        extra = family_extra(model, cfg, FAMILY_BATCH, g)
+        cache_len = FAMILY_T + 2 + (cfg.num_mm_tokens if extra is not None
+                                    and not isinstance(model, EncDec) else 0)
+        label = f"{arch} ({cfg.num_layers} layers, d={d})"
+        cf = None
+        if cfg.num_experts:
+            cf, tried = MOE_CF0, []
+            for _ in range(3):
+                with moe_routing() as rec:
+                    got, want = contract_logits(
+                        build_model(cfg.replace(capacity_factor=cf)), params,
+                        tokens, cache_len)
+                need = needed_capacity(rec, cfg)
+                tried.append((cf, need))
+                if need <= cf:
+                    break
+                # the routing up to the first drop was exact: raise the
+                # capacity to what it needed and run again
+                del got, want
+                cf = need * (1 + 1e-6)
+            else:
+                raise AssertionError(f"{label}: tokens still dropped at "
+                                     f"capacity factors {tried}")
+            print(f"  {label}: capacity factor {cf:.4f}, (tried, needed) "
+                  f"{[(round(a, 4), round(b, 4)) for a, b in tried]}: no "
+                  f"(token, slot) dropped on either path in {len(rec)} MoE "
+                  f"calls")
+        else:
+            got, want = contract_logits(model, params, tokens, cache_len,
+                                        extra)
+        err = check_contract(label, got, want)
+        del got, want
+        if arch == "recurrentgemma-2b":
+            wrap = torch.randint(0, cfg.vocab_size, (FAMILY_BATCH, RG_WRAP_T),
+                                 generator=g, device=dev)
+            got, want = contract_logits(model, params, wrap, cfg.attn_window)
+            check_contract(f"{arch} prompt {RG_WRAP_T} over the "
+                           f"{cfg.attn_window} window (the ring wraps)",
+                           got, want)
+            del wrap, got, want
+        peak = peak_gib()
+        if arch in ENCODE_BF16:
+            # f32 needs ~5 trees of 4 bytes a parameter: over one card
+            del params
+            print(f"  {arch}: {free_card():.2f} GiB allocated before the "
+                  f"bf16 encode")
+            cfg = cfg.replace(param_dtype="bfloat16", dtype="bfloat16")
+            model = build_model(cfg)
+            params = model.init(g)
+            label += " in bf16"
+        family_encode(label, model, cfg, params, g)
+        wall = time.perf_counter() - t0
+        out[arch] = {"layers": cfg.num_layers, "d": d, "contract_err": err,
+                     "capacity_factor": cf, "peak_gib": peak, "wall_s": wall}
+        del params, tokens, extra, model
+        print(f"  {arch}: {wall:.1f} s, peak device memory of the contract "
+              f"{peak:.2f} GiB; {free_card():.2f} GiB allocated after")
+    return out
+
+
+def smoke_run(arch: str, device, params_cpu, rng: np.random.Generator):
+    """Loss, its gradient, prefill logits and SMOKE_DECODE teacher-fed
+    decode steps of ``arch``'s smoke config in f32 on ``device``, with every
+    MoE call's routing."""
+    cfg = get_smoke_config(arch).replace(dtype="float32")
+    model = build_model(cfg)
+    params = flat.tree_map(lambda p: p.to(device), params_cpu)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, SMOKE_T + SMOKE_DECODE)).astype(np.int64))
+    extra = None
+    if isinstance(model, EncDec) or cfg.num_mm_tokens:
+        extra = torch.from_numpy(rng.standard_normal(
+            (2, cfg.num_mm_tokens, cfg.d_model)).astype(np.float32))
+    tokens = tokens.to(device)
+    extra = None if extra is None else extra.to(device)
+    batch = {"tokens": tokens[:, :SMOKE_T]}
+    if extra is not None:
+        batch["frames" if isinstance(model, EncDec) else
+              "prefix_embeds"] = extra
+    with moe_routing(keep_dispatch=True) as rec:
+        loss, grads = loss_grad(model, params, batch)
+        with torch.inference_mode():
+            cache_len = SMOKE_T + SMOKE_DECODE + cfg.num_mm_tokens
+            if isinstance(model, EncDec):
+                logits, cache, t = model.prefill(params, extra,
+                                                 tokens[:, :SMOKE_T],
+                                                 cache_len)
+            else:
+                logits, cache, t = model.prefill(params, tokens[:, :SMOKE_T],
+                                                 cache_len, extra)
+            steps = [logits]
+            for i in range(SMOKE_DECODE):
+                logits, cache = model.decode_step(
+                    params, cache, tokens[:, SMOKE_T + i], t + i)
+                steps.append(logits)
+    return {"loss": loss, "grads": grads, "logits": steps, "routing": rec}
+
+
+def phase_smoke_families(dev) -> dict:
+    """(d): every architecture's smoke config, card against CPU, f32."""
+    phase(f"(d) smoke configs, card vs CPU, f32: loss, gradient, prefill "
+          f"logits and {SMOKE_DECODE} decode steps; MoE routing bitwise")
+    cpu = torch.device("cpu")
+    out = {}
+    for i, arch in enumerate(ARCH_IDS):
+        cfg = get_smoke_config(arch).replace(dtype="float32")
+        params = build_model(cfg).init(gen(cpu, 131 + i))
+        runs = [smoke_run(arch, device, params, np.random.default_rng(i))
+                for device in (dev, cpu)]
+        card, host = [flat.tree_map(lambda t: t.cpu() if isinstance(
+            t, torch.Tensor) else t, r) for r in runs]
+        worst = {}
+        for key in ("loss", "grads", "logits"):
+            a, b = flat.tree_leaves(card[key]), flat.tree_leaves(host[key])
+            worst[key] = max(float((x - y).abs().max()) for x, y in zip(a, b))
+            if not all(torch.allclose(x, y, **SMOKE_TOL)
+                       for x, y in zip(a, b)):
+                raise AssertionError(f"{arch} smoke, card vs CPU: {key} off "
+                                     f"by {worst[key]:.3e}")
+        calls = len(host["routing"])
+        if len(card["routing"]) != calls or not all(
+                torch.equal(x, y) for rc, rh in zip(card["routing"],
+                                                    host["routing"])
+                for x, y in zip(rc[:2], rh[:2])):
+            raise AssertionError(f"{arch} smoke: MoE routing differs, card "
+                                 f"vs CPU")
+        print(f"  {arch}: loss {float(host['loss']):.6f}, max |card - CPU| "
+              f"loss {worst['loss']:.2e}, gradient {worst['grads']:.2e}, "
+              f"logits {worst['logits']:.2e}"
+              + (f"; {calls} MoE calls' top_e and dispatch bitwise"
+                 if calls else ""))
+        out[arch] = worst
+    return out
+
+
+def phase_lm_families(out_dir: str, dev) -> dict:
+    """Phase 19: (a), (b) with its 2-layer round card vs CPU, (c), (d)."""
+    t0 = time.perf_counter()
+    serve_prof = phase_tl_serve()
+    train_prof = phase_tl_train(out_dir, dev)
+    free_card()
+    phase_lm_cpu(dev, TL_ARCH, *TL_FLAGS)
+    families = phase_families(dev)
+    smoke = phase_smoke_families(dev)
+    wall = time.perf_counter() - t0
+    print(f"  phase 19 wall {wall:.1f} s")
+    return {"serve": serve_prof, "train": train_prof, "families": families,
+            "smoke": smoke, "wall_s": wall}
+
+
 def main() -> int:
     phase("device")
     if not torch.cuda.is_available():
@@ -3375,6 +3877,13 @@ def main() -> int:
     phase_lm_cpu(dev)
     fanout_bytes = phase_fanout(state, fault_state, batches, dev)
     host_layers = phase_host_layers(sfc_state, sign_state, dev)
+    # phase 19 takes most of the card: mamba2's state waits on the host
+    lm_state = state_to_cpu(lm_state)
+    free_card()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
+        families = phase_lm_families(out_dir, dev)
+    free_card()
+    lm_state = state_to(lm_state, dev)
     lm_cfg = get_config("mamba2-370m")
     lm_model, lm_strategy, lm_run = train.lm_setup(
         lm_args(LM_N, LM_BATCH), lm_cfg, LM_COMP, LM_SEQ)
@@ -3397,7 +3906,7 @@ def main() -> int:
     errs = {**errs, "sign_quant": err_b5, "topk_mask": 0.0}
     sign_round = sign_codec_round(sign_state)
     sign_round_by_frame = sign_codec_round(sign_state, by_frame=True)
-    rows = phase_times(dev, launched, errs, [
+    rows = phase_times(dev, launched, errs, families, [
         (f"main-path round (S={S}, N={N}, K={K}, B={B})",
          lambda: float_round(state, batches, 0, syn0=syn0)),
         (f"signSGD codec round (N={N}, K={K}, B={B})",
@@ -3418,6 +3927,7 @@ def main() -> int:
     print(json.dumps({"fanout": {**fanout, "gathered_bytes_per_client":
                                  fanout_bytes}}))
     print(json.dumps({"host_layers": host_layers}))
+    print(json.dumps({"lm_families": families}))
 
     print(f"chip_smoke wall {time.perf_counter() - _T0:.1f} s (from the "
           f"script's start, the kernels' build included)")

@@ -1,34 +1,36 @@
 """3SFC beyond the paper, on the PyTorch port: compress an LLM federated
 update.
 
-    PYTHONPATH=src python examples/compress_llm_update_torch.py [--device cpu]
+    PYTHONPATH=src python examples/compress_llm_update_torch.py \
+        [--arch tinyllama-1.1b] [--device cpu]
 
 The counterpart of ``examples/compress_llm_update.py`` on ``repro_torch``:
-the registered 3SFC strategy runs on the reduced (smoke) mamba2-370m, its
-synthetic payload soft input EMBEDDINGS + LOW-RANK soft labels over the
-vocabulary. The port carries mamba2 only so far; the other architectures
-and the encoder-decoder branch come with their model families. Runs on the
-CUDA device unless ``--device cpu`` is given.
+the registered 3SFC strategy runs on a reduced (smoke) LM architecture of
+``ARCH_IDS``, its synthetic payload soft input EMBEDDINGS + LOW-RANK soft
+labels over the vocabulary. Works for every family: dense, MoE (EF
+carries the experts a payload does not reach), SSM, hybrid, the VLM
+(prefix embeddings) and the encoder-decoder (frames). Runs on the CUDA
+device unless ``--device cpu`` is given.
 """
 import argparse
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import CompressorConfig, get_smoke_config
+from repro_torch.configs.base import (ARCH_IDS, CompressorConfig,
+                                     get_smoke_config)
 from repro_torch.core import flat
 from repro_torch.core.strategy import make_strategy
 from repro_torch.data.synthetic import make_token_dataset
 from repro_torch.fl.client import local_train
 from repro_torch.launch.train import resolve_device
 from repro_torch.models.build import build_model, syn_loss_fn, syn_spec_for
-
-ARCHS = ("mamba2-370m",)
+from repro_torch.models.encdec import EncDec
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="mamba2-370m", choices=ARCHS)
+    ap.add_argument("--arch", default="tinyllama-1.1b", choices=ARCH_IDS)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--local-iters", type=int, default=3)
     ap.add_argument("--device", default="cuda",
@@ -43,13 +45,20 @@ def main(argv=None):
 
     data = make_token_dataset(torch.Generator().manual_seed(1), 64, 32,
                               cfg.vocab_size)
-    tokens = torch.as_tensor(np.asarray(data[:8]), device=device)
+    batch = {"tokens": torch.as_tensor(np.asarray(data[:8]), device=device)}
+    gen = torch.Generator(device=device).manual_seed(0)
+    extra = torch.randn((8, cfg.num_mm_tokens, cfg.d_model), generator=gen,
+                        device=device)
+    if isinstance(model, EncDec):
+        batch["frames"] = extra
+    elif cfg.num_mm_tokens:
+        batch["prefix_embeds"] = extra
 
     # accumulate a local update: the same batch for every local step
     target, _ = local_train(
         model.loss, w,
-        {"tokens": tokens.unsqueeze(0).expand(args.local_iters,
-                                              *tokens.shape)}, 0.01)
+        {k: v.unsqueeze(0).expand(args.local_iters, *v.shape)
+         for k, v in batch.items()}, 0.01)
 
     comp = CompressorConfig(kind="threesfc", syn_batch=1, syn_seq=8,
                             soft_label_rank=8, syn_steps=args.steps,

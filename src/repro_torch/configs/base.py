@@ -3,16 +3,15 @@
 A copy of ``ModelConfig``, ``CompressorConfig`` and ``FLConfig`` from the
 JAX package's ``configs/base.py``, field for field, so a run's
 configuration reads the same in both packages. Every architecture of
-``ARCH_IDS`` whose model is ported has a module in this package defining
-``CONFIG`` (full size) and ``smoke_config()`` (the reduced CPU-test
-variant); ``get_config``/``get_smoke_config`` resolve dash or underscore
-ids and raise ``NotImplementedError`` for an architecture not ported yet.
+``ARCH_IDS`` has a module in this package defining ``CONFIG`` (the
+published widths) and ``smoke_config()`` (the reduced CPU-test variant),
+field for field the reference's; ``get_config``/``get_smoke_config``
+resolve dash or underscore ids.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-import importlib.util
 from dataclasses import dataclass, field
 from typing import Tuple
 
@@ -144,15 +143,10 @@ def _module_name(arch_id: str) -> str:
 
 
 def _config_module(arch_id: str):
-    ids = {_module_name(a): a for a in ARCH_IDS}
     name = _module_name(arch_id)
-    if name not in ids:
+    if name not in {_module_name(a) for a in ARCH_IDS}:
         raise ValueError(f"unknown arch {arch_id!r}; one of {ARCH_IDS}")
-    full = f"repro_torch.configs.{name}"
-    if importlib.util.find_spec(full) is None:
-        raise NotImplementedError(
-            f"arch {ids[name]!r} is not ported yet, see ROADMAP.md")
-    return importlib.import_module(full)
+    return importlib.import_module(f"repro_torch.configs.{name}")
 
 
 def get_config(arch_id: str) -> ModelConfig:

@@ -234,6 +234,7 @@ class RunConfig:
                    client_parallel=client_parallel,
                    mesh=mesh,
                    wire=getattr(args, "wire", "float"),
+                   fused_decode=getattr(args, "fused_decode", False),
                    wire_policy=getattr(args, "wire_policy", "fp32"),
                    participation_rate=getattr(args, "participation_rate", 1.0),
                    drop_rate=getattr(args, "drop_rate", 0.0),

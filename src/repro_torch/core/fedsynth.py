@@ -43,8 +43,10 @@ def _simulate(loss_fn: LossFn, params: PyTree, syn: SynData, k: int,
     w = params
     for _ in range(k):
         leaves, treedef = tree_flatten(w)
+        # a leaf the loss never reads gets zeros, as jax.grad reports it
         g = torch.autograd.grad(loss_fn(w, syn), leaves,
-                                create_graph=create_graph)
+                                create_graph=create_graph,
+                                allow_unused=True, materialize_grads=True)
         w = flat.tree_axpy(-lr, tree_unflatten(treedef, list(g)), w)
     return w
 

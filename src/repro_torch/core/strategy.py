@@ -447,7 +447,9 @@ class ThreeSFCStrategy(CompressionStrategy):
             self.loss_fn(w, threesfc.SynData(*[t[i] for t in syns]))
             for i in range(ss.shape[0])])
         total = torch.mean(ss.detach() * per)
-        grads = torch.autograd.grad(total, leaves)
+        # a leaf the loss never reads gets zeros, as in threesfc.decode
+        grads = torch.autograd.grad(total, leaves, allow_unused=True,
+                                    materialize_grads=True)
         return tree_unflatten(treedef, list(grads))
 
     def mask_payloads(self, payloads, w):

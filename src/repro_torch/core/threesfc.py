@@ -103,10 +103,13 @@ _EPS = 1e-12
 
 def _grad_params(loss_fn: LossFn, params: PyTree, syn: SynData, *,
                  create_graph: bool) -> PyTree:
-    """∇_w loss_fn(w, syn) at ``params`` (whose leaves require grad)."""
+    """∇_w loss_fn(w, syn) at ``params`` (whose leaves require grad). A
+    leaf the loss never reads (an untied input embedding under soft
+    embeddings) gets a zero gradient, as ``jax.grad`` reports it."""
     leaves, treedef = tree_flatten(params)
     loss = loss_fn(params, syn)
-    grads = torch.autograd.grad(loss, leaves, create_graph=create_graph)
+    grads = torch.autograd.grad(loss, leaves, create_graph=create_graph,
+                                allow_unused=True, materialize_grads=True)
     return tree_unflatten(treedef, list(grads))
 
 

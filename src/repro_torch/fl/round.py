@@ -378,12 +378,13 @@ def build_fl_round(
         """Every client's record, in client order, each field stacked on a
         leading (N, ...) client axis: the messages (trees, or codec frames
         as one (N, nbytes) array), the losses, cosines and payload floats.
-        Under shard_map one collective gathers them already stacked, and
-        the server phase takes them as they come. Fused mode has no use for
-        the clients' payload floats and leaves them out."""
+        In one process the message trees come stacked already (the round
+        writes each into its row as it comes). Under shard_map one
+        collective gathers them already stacked, and the server phase takes
+        them as they come. Fused mode has no use for the clients' payload
+        floats and leaves them out."""
         if shardings is None:
-            return (msgs if wired else flat.tree_stack(msgs),
-                    torch.stack(losses), torch.stack(cos),
+            return (msgs, torch.stack(losses), torch.stack(cos),
                     None if fused else torch.stack(floats))
         # imported here: DTensor's import (sympy, fx) takes seconds, and
         # a socket worker, which never shards, should not pay it
@@ -416,6 +417,9 @@ def build_fl_round(
                 f"{flat.tree_leaves(state.ef)[0].shape[0]}")
         new_ef = flat.tree_map(torch.empty_like, state.ef)
         msgs, losses, cos, floats = [], [], [], []
+        # in one process a message tree goes straight into its row of the
+        # (N, ...) tensors, so the round never holds the N trees twice
+        stack_rows = shardings is None and not wired
         for j, i in enumerate(clients):
             # i: the global client id; j: its row in this rank's EF rows
             # and batch tree
@@ -431,10 +435,19 @@ def build_fl_round(
                 ef_row = missed_ef(strategy, out, ef_i, part[i])
             # the new residual row goes straight into the (N, ...) tensors
             flat.tree_map(lambda dst, src: dst[j].copy_(src), new_ef, ef_row)
-            msgs.append(out.msg)
+            if stack_rows:
+                if j == 0:
+                    msgs = flat.tree_map(
+                        lambda m: m.new_empty((N, *m.shape)), out.msg)
+                flat.tree_map(lambda dst, src: dst[j].copy_(src), msgs,
+                              out.msg)
+            else:
+                msgs.append(out.msg)
             losses.append(out.loss)
             cos.append(out.metrics.cosine)
             floats.append(out.metrics.payload_floats)
+            # this client's trees go before the next one trains
+            del out, ef_row
         msgs, losses, cos, floats = stack_clients(msgs, losses, cos, floats)
         if faulted:
             # loss over participants only: mean × N/count, exactly 1.0 when

@@ -1,30 +1,38 @@
 """Serving driver: batched prefill + greedy decode loop.
 
-The port's counterpart of the JAX package's ``launch/serve.py``:
+The port's counterpart of the JAX package's ``launch/serve.py``, for
+every architecture of ``ARCH_IDS`` (``--arch``, tinyllama-1.1b by
+default, as the reference):
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --batch 4 --prompt-len 32 --gen 16 --device cpu
+    python -m repro_torch.launch.serve --arch tinyllama-1.1b --size full \
+        --batch 4 --prompt-len 2048 --gen 16
     python -m repro_torch.launch.serve --arch mamba2-370m --size full \
         --batch 4 --prompt-len 2048 --gen 16 --ssd-kernel
 
 It runs on the CUDA device unless ``--device cpu`` is given, and raises
 when no CUDA device is available and the CPU was not asked for.
 ``--size smoke`` (the default, as in the reference) serves the reduced
-config; ``--size full`` the published widths. ``--ssd-kernel`` sets
-``use_pallas_ssd``: every SSM layer's prefill runs its intra-chunk step in
-kernel B4, and a prompt length that route cannot take raises.
+config; ``--size full`` the published widths. An encoder-decoder model
+(seamless-m4t-medium) encodes ``(batch, num_mm_tokens, d_model)`` stub
+frames before the prompt. ``--ssd-kernel`` sets ``use_pallas_ssd``: every
+SSM layer's prefill runs its intra-chunk step in kernel B4, and an
+architecture without SSM layers, or a prompt length that route cannot
+take, raises.
 ``--metrics-port`` serves ``/healthz`` and ``/metrics`` (the
 ``repro_torch.obs`` registry snapshot: prefill and decode-step times,
 token counters) for the run, and after it until interrupted.
 
 Seeds: params from ``fold_in(seed, 0)``, the prompt from
-``fold_in(seed, 1)`` (``repro_torch.fl.round.fold_in``).
+``fold_in(seed, 1)``, an enc-dec model's frames from ``fold_in(seed, 2)``
+(``repro_torch.fl.round.fold_in``).
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -32,7 +40,7 @@ from repro_torch.configs.base import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.fl.round import fold_in
 from repro_torch.launch.train import resolve_device
 from repro_torch.models.build import build_model
-from repro_torch.models.transformer import LM
+from repro_torch.models.encdec import EncDec
 from repro_torch.obs import get_registry
 from repro_torch.obs.http import ObsHTTPServer
 
@@ -42,9 +50,10 @@ class ServeResult(NamedTuple):
     tokens: torch.Tensor        # (B, gen) the greedy tokens
     prefill_s: float            # wall seconds of the prefill
     decode_s: float             # wall seconds of the gen - 1 decode steps
-    model: LM
+    model: Any                  # LM or EncDec
     params: Any
     prompt: torch.Tensor        # (B, prompt_len)
+    frames: Optional[torch.Tensor] = None   # (B, T, d), enc-dec only
 
 
 def _sync(device: torch.device) -> None:
@@ -53,8 +62,11 @@ def _sync(device: torch.device) -> None:
 
 
 def check_kernel_route(cfg, prompt_len: int) -> None:
-    """Raises unless every SSM layer's prefill takes the kernel route at
-    ``prompt_len`` (``models.ssm.ssm_forward``'s shape rule)."""
+    """Raises unless ``cfg`` has SSM layers and every one's prefill takes
+    the kernel route at ``prompt_len`` (``models.ssm.ssm_forward``'s shape
+    rule)."""
+    if "ssm" not in cfg.block_pattern:
+        raise ValueError(f"--ssd-kernel: {cfg.name} has no SSM layers")
     q = min(cfg.ssm_chunk, prompt_len)
     if prompt_len < 1 or prompt_len % q:
         raise ValueError(
@@ -65,7 +77,7 @@ def check_kernel_route(cfg, prompt_len: int) -> None:
 
 def main(argv=None) -> ServeResult:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="mamba2-370m", choices=ARCH_IDS)
+    ap.add_argument("--arch", default="tinyllama-1.1b", choices=ARCH_IDS)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32, dest="prompt_len")
     ap.add_argument("--gen", type=int, default=16)
@@ -129,11 +141,21 @@ def _serve(args) -> ServeResult:
             generator=torch.Generator(device).manual_seed(
                 fold_in(args.seed, 1)),
             device=device)
+        frames = None
+        if isinstance(model, EncDec):
+            frames = torch.randn(
+                (args.batch, cfg.num_mm_tokens, cfg.d_model),
+                generator=torch.Generator(device).manual_seed(
+                    fold_in(args.seed, 2)), device=device)
         cache_len = args.prompt_len + args.gen
 
         _sync(device)
         t0 = time.perf_counter()
-        logits, cache, t = model.prefill(params, tokens, cache_len)
+        if frames is None:
+            logits, cache, t = model.prefill(params, tokens, cache_len)
+        else:
+            logits, cache, t = model.prefill(params, frames, tokens,
+                                             cache_len)
         _sync(device)
         prefill_s = time.perf_counter() - t0
         meters.histogram("serve.prefill_s").observe(prefill_s)
@@ -165,7 +187,7 @@ def _serve(args) -> ServeResult:
         raise RuntimeError("non-finite logits")
     print("serve OK")
     return ServeResult(logits, gen, prefill_s, decode_s, model, params,
-                       tokens)
+                       tokens, frames)
 
 
 if __name__ == "__main__":

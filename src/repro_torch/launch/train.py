@@ -23,7 +23,7 @@ a sequence, up to 8 slices of each local batch).
         --wire codec
     PYTHONPATH=src python -m repro_torch.launch.train --model convnet \
         --dataset cifar10 --drop-rate 0.3 --participation-rate 0.8
-    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m \
+    PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \
         --smoke --rounds 3 --clients 2 --eval-every 1
 
 It runs on the CUDA device unless ``--device cpu`` is given, and raises
@@ -66,7 +66,7 @@ import json
 import os
 import subprocess
 import time
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -93,6 +93,7 @@ from repro_torch.models.build import (build_model, syn_loss_fn, syn_spec_for,
                                       vision_syn_spec)
 from repro_torch.models.cnn import (DATASETS, VisionSpec, accuracy,
                                     make_paper_model)
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.transformer import LM
 from repro_torch.obs import (configure_tracer, get_registry, get_tracer,
                              merge_traces, set_tracer, write_chrome_trace)
@@ -651,7 +652,7 @@ def num_micro_for(per_client: int, seq_len: int) -> int:
 
 def lm_setup(args, cfg: ModelConfig, comp: CompressorConfig,
              seq_len: int, *, client_parallel: str = "vmap", mesh=None
-             ) -> Tuple[LM, CompressionStrategy, RunConfig]:
+             ) -> Tuple[Union[LM, EncDec], CompressionStrategy, RunConfig]:
     """(model, strategy, run config) of an LM-family FL round: ``cfg``'s
     model, ``comp`` with the model's synthetic-data loss, the flags' FL
     settings, the fan-out and the microbatch rule for ``args.batch``
@@ -686,8 +687,11 @@ def train_lm(args, cfg: ModelConfig, comp: CompressorConfig, seq_len: int,
     data = make_token_dataset(
         _generator(torch.device("cpu"), fold_in(args.seed, 0)), num_seqs,
         seq_len, cfg.vocab_size)
-    extras = ({"prefix_embeds": (cfg.num_mm_tokens, cfg.d_model)}
-              if cfg.num_mm_tokens else {})
+    extras = {}
+    if isinstance(model, EncDec):
+        extras["frames"] = (cfg.num_mm_tokens, cfg.d_model)
+    elif cfg.num_mm_tokens:
+        extras["prefix_embeds"] = (cfg.num_mm_tokens, cfg.d_model)
     engine = RoundEngine(
         build_fl_round(model.loss, strategy, run, codec=codec),
         token_batcher(data, args.clients, args.local_steps, args.batch,
@@ -695,8 +699,8 @@ def train_lm(args, cfg: ModelConfig, comp: CompressorConfig, seq_len: int,
                       clients=None if shardings is None
                       else shardings.local_clients(args.clients)),
         seed=args.seed, shardings=shardings)
-    state = engine.init_state(params, args.clients, strategy,
-                              staleness_max=run.staleness_max)
+    first = [engine.init_state(params, args.clients, strategy,
+                               staleness_max=run.staleness_max)]
     del params                       # the state holds its own copy
 
     _write_run_config(args.out, {**run.to_json(), "arch": cfg.name,
@@ -708,7 +712,10 @@ def train_lm(args, cfg: ModelConfig, comp: CompressorConfig, seq_len: int,
                 log.write({"round": r, "loss": float(m.loss[-1]),
                            "cos": float(m.cosine[-1].mean()), "params": d})
 
-        state, hist = engine.run(state, args.rounds,
+        # the engine takes the only reference to the first state: kept in
+        # this frame, it would stay on the device beside every later
+        # round's (at 1.1 B parameters, 5 trees of 4.4 GB)
+        state, hist = engine.run(first.pop(), args.rounds,
                                  eval_every=args.eval_every, eval_fn=on_eval)
     return _finish(state, shardings), hist
 
@@ -755,6 +762,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="what crosses the client/server boundary: float "
                          "trees (accounted bytes) or the repro_torch.comm "
                          "codec's framed uint8 buffers (measured bytes)")
+    ap.add_argument("--fused-decode", action="store_true",
+                    dest="fused_decode",
+                    help="3SFC: the server aggregates the N (D_syn, s) "
+                         "payloads in one backward instead of averaging N "
+                         "reconstructed trees (RunConfig.fused_decode); a "
+                         "round then never holds N model-sized trees")
     # fault model (repro_torch.fl.faults): all default to the zero-fault
     # config, which runs the exact unfaulted round
     ap.add_argument("--participation-rate", type=float, default=1.0,

@@ -1,9 +1,10 @@
 """Shared primitive layers: RMSNorm, embedding, the logit projections, the
-depthwise causal conv of the LM families, and the paper CNNs' conv2d.
+SwiGLU FFN, the depthwise causal conv of the LM families, and the paper
+CNNs' conv2d.
 
 Casts follow the JAX package's ``models/layers.py``: norm statistics and
-logits in f32, the conv in the activation dtype (its decode step in f32).
-The FFN waits for the attention families (ROADMAP.md).
+logits in f32, the FFN's weights cast to the activation dtype at the call,
+the conv in the activation dtype (its decode step in f32).
 """
 from __future__ import annotations
 
@@ -60,6 +61,28 @@ def lm_head_init(gen: torch.Generator, d: int, vocab: int,
 
 def lm_head(p: Dict, x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32) @ p["w"].to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU FFN
+# ---------------------------------------------------------------------------
+
+
+def ffn_init(gen: torch.Generator, d: int, ff: int,
+             dtype=torch.float32) -> Dict:
+    return {
+        "w_in": P_.dense_init(gen, d, (d, ff), dtype),
+        "w_gate": P_.dense_init(gen, d, (d, ff), dtype),
+        "w_out": P_.dense_init(gen, ff, (ff, d), dtype),
+    }
+
+
+def ffn(p: Dict, x: torch.Tensor) -> torch.Tensor:
+    """``silu(x·w_gate) * (x·w_in)``, then ``w_out``."""
+    dt = x.dtype
+    h = x @ p["w_in"].to(dt)
+    g = x @ p["w_gate"].to(dt)
+    return (F.silu(g) * h) @ p["w_out"].to(dt)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,113 @@
+"""Mixture-of-Experts FFN: top-k router + capacity-based one-hot dispatch.
+
+The JAX package's ``models/moe.py``: the router runs in f32 and keeps the
+top k of the softmax (ties to the lower expert index, as ``lax.top_k``),
+renormalized; the Switch aux loss is taken from the top-1 choice. Each
+(token, slot) takes the next place in its expert's queue of capacity
+``C = max(1, int(capacity_factor · k · S / E))``; those past it are
+dropped (the residual carries them). The dispatch and combine one-hots
+are (B, S, E, C), folded over the k slots (written folded: the
+reference's unfolded (B, S·k, E, C) ones are k times larger); the
+experts' SwiGLU runs as three (E, ...) batched products, and optional
+shared experts as one dense SwiGLU of width ``d_ff · shared_experts``
+added to the routed output.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers
+from repro_torch.models import params as P_
+
+
+class MoEOut(NamedTuple):
+    y: torch.Tensor
+    aux_loss: torch.Tensor    # load-balance loss (Switch-style)
+
+
+def moe_init(gen: torch.Generator, d: int, ff: int, num_experts: int,
+             shared_experts: int = 0, dtype=torch.float32) -> Dict:
+    p = {
+        "router": P_.dense_init(gen, d, (d, num_experts), torch.float32),
+        "w_in": P_.dense_init(gen, d, (num_experts, d, ff), dtype),
+        "w_gate": P_.dense_init(gen, d, (num_experts, d, ff), dtype),
+        "w_out": P_.dense_init(gen, ff, (num_experts, ff, d), dtype),
+    }
+    if shared_experts:
+        p["shared"] = layers.ffn_init(gen, d, ff * shared_experts, dtype)
+    return p
+
+
+def top_k(x: torch.Tensor, k: int):
+    """``lax.top_k`` over the last axis: values and indices in descending
+    order, a tie to the lower index (a stable sort; ``torch.topk`` leaves
+    the order of ties unspecified)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _router(p: Dict, x: torch.Tensor, k: int):
+    """Returns (top-k weights (B, S, k), top-k expert ids (B, S, k), aux
+    loss)."""
+    logits = x.to(torch.float32) @ p["router"].to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_e = top_k(probs, k)
+    top_w = top_w / (torch.sum(top_w, dim=-1, keepdim=True) + 1e-9)
+    # Switch aux loss: E · Σ_e fraction_tokens(e) · mean_prob(e)
+    E = logits.shape[-1]
+    me = torch.mean(probs, dim=(0, 1))                               # (E,)
+    onehot = F.one_hot(top_e[..., 0], E).to(torch.float32)  # top-1 assign
+    ce = torch.mean(onehot, dim=(0, 1))
+    aux = E * torch.sum(me * ce)
+    return top_w, top_e, aux
+
+
+def capacity(capacity_factor: float, k: int, S: int, E: int) -> int:
+    """Each expert's queue length, in the reference's Python arithmetic."""
+    return max(1, int(capacity_factor * k * S / E))
+
+
+def dispatch_combine(top_w: torch.Tensor, top_e: torch.Tensor, E: int,
+                     C: int):
+    """The (B, S, E, C) dispatch and combine one-hots, folded over the k
+    slots: a (token, slot) takes the next place in its expert's queue in
+    (token, slot) order, and is dropped past C. A token's k experts are
+    distinct, so each (token, expert) has at most one place: the folded
+    one-hots are written in place of the reference's (B, S·k, E, C) ones
+    and their sum over k, with the same bits."""
+    B, S, k = top_e.shape
+    e = top_e.reshape(B, S * k)
+    flat = F.one_hot(e, E).to(torch.float32)                    # (B,S·k,E)
+    pos_in_e = (torch.cumsum(flat, dim=1) - flat) * flat
+    pos = torch.gather(pos_in_e, 2, e[..., None])[..., 0].long()  # (B,S·k)
+    b, t = torch.nonzero(pos < C, as_tuple=True)
+    idx = (b, t // k, e[b, t], pos[b, t])
+    dispatch = top_w.new_zeros((B, S, E, C))
+    combine = top_w.new_zeros((B, S, E, C))
+    dispatch[idx] = 1.0
+    combine[idx] = top_w.reshape(B, S * k)[b, t]
+    return dispatch, combine
+
+
+def moe_ffn(p: Dict, x: torch.Tensor, *, experts_per_token: int,
+            capacity_factor: float = 1.25, aux_coef: float = 0.01) -> MoEOut:
+    """x: (B, S, d) -> (B, S, d)."""
+    S = x.shape[1]
+    E = p["router"].shape[-1]
+    k = experts_per_token
+    top_w, top_e, aux = _router(p, x, k)
+    dispatch, combine = dispatch_combine(
+        top_w, top_e, E, capacity(capacity_factor, k, S, E))
+
+    dt = x.dtype
+    xe = torch.einsum("bsd,bsec->ebcd", x, dispatch.to(dt))        # (E,B,C,d)
+    h = torch.einsum("ebcd,edf->ebcf", xe, p["w_in"].to(dt))
+    g = torch.einsum("ebcd,edf->ebcf", xe, p["w_gate"].to(dt))
+    ye = torch.einsum("ebcf,efd->ebcd", F.silu(g) * h, p["w_out"].to(dt))
+    y = torch.einsum("ebcd,bsec->bsd", ye, combine.to(dt))
+    if "shared" in p:
+        y = y + layers.ffn(p["shared"], x)
+    return MoEOut(y, aux_coef * aux)

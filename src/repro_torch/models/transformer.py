@@ -1,11 +1,11 @@
-"""Decoder-only LM: the serving path of the SSM family.
+"""Decoder-only LM covering the dense, MoE, SSM and hybrid families.
 
 Layers are grouped into *periods* = one repetition of ``cfg.block_pattern``
-(uniform archs: pattern ("ssm",) -> period == layer). Period params carry a
+(uniform archs: pattern ("attn",) -> period == layer). Period params carry a
 leading ``n_periods`` axis, in the JAX package's layout (``"layers"``, keyed
 ``"0"``…), so its ``LM.init`` tree loads unchanged; here the periods run as
 a Python loop over that axis. A non-divisible remainder becomes ``tail``
-blocks.
+blocks (recurrentgemma: 26 = 3·8 + 2).
 
 Big-vocab discipline: the (B, S, V) logits never materialize. Training CE
 walks the sequence in chunks of ``LOSS_CHUNK`` positions (each recomputed
@@ -20,9 +20,10 @@ recomputes a period's forward instead of keeping its activations.
 Synthetic features (3SFC): ``syn_loss`` takes soft input embeddings
 (n, L, d) and soft labels (dense or low-rank over the vocab).
 
-Ported: the ``"ssm"`` blocks (mamba2), ``init``, ``forward_hidden``,
-``loss``, ``syn_loss``, ``init_cache``, ``prefill`` and ``decode_step``.
-The ``"attn"`` and ``"rec"`` blocks raise "not ported yet" (ROADMAP.md).
+The blocks: ``"attn"`` (attention + SwiGLU FFN, or + MoE when
+``cfg.num_experts``), ``"ssm"`` (the mamba2 mixer) and ``"rec"`` (RG-LRU +
+FFN). Multimodal prefixes (``prefix_embeds`` (B, T_mm, d)) are
+concatenated in front of the token embeddings; the loss masks them out.
 """
 from __future__ import annotations
 
@@ -34,14 +35,15 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.threesfc import SynData, soft_xent
 from repro_torch.core.tree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import params as P_
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 
 PyTree = Any
 LOSS_CHUNK = 512          # sequence-chunked CE block size
-
-_NOT_PORTED = "not ported yet, see ROADMAP.md"
 
 
 # ---------------------------------------------------------------------------
@@ -59,9 +61,16 @@ def pattern_layout(cfg: ModelConfig
 
 
 def _block_error(btype: str) -> Exception:
-    if btype in ("attn", "rec"):
-        return NotImplementedError(f"block type {btype!r} is {_NOT_PORTED}")
     return ValueError(f"unknown block type {btype!r}")
+
+
+def _rnn_width(cfg: ModelConfig) -> int:
+    return cfg.rnn_width or cfg.d_model
+
+
+def _cache_len(cfg: ModelConfig, cache_len: int) -> int:
+    """An attention block's ring: at most the window."""
+    return min(cache_len, cfg.attn_window) if cfg.attn_window else cache_len
 
 
 # ---------------------------------------------------------------------------
@@ -71,56 +80,143 @@ def _block_error(btype: str) -> Exception:
 
 def _block_init(gen: torch.Generator, cfg: ModelConfig, btype: str,
                 dtype) -> Dict:
+    d, dev = cfg.d_model, gen.device
+    if btype == "attn":
+        p = {
+            "ln1": layers.rmsnorm_init(d, dtype, dev),
+            "attn": attn_mod.attn_init(gen, d, cfg.num_heads,
+                                       cfg.num_kv_heads,
+                                       cfg.resolved_head_dim, cfg.qkv_bias,
+                                       dtype),
+            "ln2": layers.rmsnorm_init(d, dtype, dev),
+        }
+        if cfg.num_experts:
+            p["moe"] = moe_mod.moe_init(gen, d, cfg.d_ff, cfg.num_experts,
+                                        cfg.shared_experts, dtype)
+        else:
+            p["ffn"] = layers.ffn_init(gen, d, cfg.d_ff, dtype)
+        return p
     if btype == "ssm":
         dims = ssm_mod.SSMDims.from_cfg(cfg)
-        return {"ln1": layers.rmsnorm_init(cfg.d_model, dtype, gen.device),
+        return {"ln1": layers.rmsnorm_init(d, dtype, dev),
                 "ssm": ssm_mod.ssm_init(gen, dims, dtype)}
+    if btype == "rec":
+        return {
+            "ln1": layers.rmsnorm_init(d, dtype, dev),
+            "rglru": rglru_mod.rglru_init(gen, d, _rnn_width(cfg),
+                                          cfg.conv_width, dtype),
+            "ln2": layers.rmsnorm_init(d, dtype, dev),
+            "ffn": layers.ffn_init(gen, d, cfg.d_ff, dtype),
+        }
     raise _block_error(btype)
+
+
+def _ffn_or_moe(cfg: ModelConfig, p: Dict, z: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """An attention block's second half on its normed input: (y, aux)."""
+    if cfg.num_experts:
+        out = moe_mod.moe_ffn(p["moe"], z,
+                              experts_per_token=cfg.experts_per_token,
+                              capacity_factor=cfg.capacity_factor,
+                              aux_coef=cfg.moe_aux_coef)
+        return out.y, out.aux_loss
+    return layers.ffn(p["ffn"], z), None
 
 
 def _block_forward(cfg: ModelConfig, btype: str, p: Dict, x: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. Returns (x, aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    eps = cfg.norm_eps
+    if btype == "attn":
+        x = x + attn_mod.attention(p["attn"], layers.rmsnorm(p["ln1"], x, eps),
+                                   theta=cfg.rope_theta,
+                                   window=cfg.attn_window)
+        y, a = _ffn_or_moe(cfg, p, layers.rmsnorm(p["ln2"], x, eps))
+        return x + y, aux if a is None else aux + a
     if btype == "ssm":
         dims = ssm_mod.SSMDims.from_cfg(cfg)
         y, _ = ssm_mod.ssm_forward(
-            p["ssm"], layers.rmsnorm(p["ln1"], x, cfg.norm_eps), dims)
+            p["ssm"], layers.rmsnorm(p["ln1"], x, eps), dims)
         return x + y, aux
+    if btype == "rec":
+        y, _ = rglru_mod.rglru_forward(p["rglru"],
+                                       layers.rmsnorm(p["ln1"], x, eps))
+        x = x + y
+        return x + layers.ffn(p["ffn"], layers.rmsnorm(p["ln2"], x, eps)), aux
     raise _block_error(btype)
 
 
 def _block_cache(cfg: ModelConfig, btype: str, batch: int, cache_len: int,
                  dtype, device):
+    if btype == "attn":
+        return attn_mod.init_cache(batch, _cache_len(cfg, cache_len),
+                                   cfg.num_kv_heads, cfg.resolved_head_dim,
+                                   dtype, device)
     if btype == "ssm":
         return ssm_mod.init_ssm_cache(batch, ssm_mod.SSMDims.from_cfg(cfg),
                                       dtype, device)
+    if btype == "rec":
+        return rglru_mod.init_rglru_cache(batch, _rnn_width(cfg),
+                                          cfg.conv_width, dtype, device)
     raise _block_error(btype)
 
 
 def _block_prefill(cfg: ModelConfig, btype: str, p: Dict, x: torch.Tensor,
                    cache_len: int):
     """Full forward + populated cache for this block."""
+    eps = cfg.norm_eps
+    if btype == "attn":
+        h, kv = attn_mod.prefill_cache(
+            p["attn"], layers.rmsnorm(p["ln1"], x, eps),
+            _cache_len(cfg, cache_len), theta=cfg.rope_theta,
+            window=cfg.attn_window)
+        x = x + h
+        y, _ = _ffn_or_moe(cfg, p, layers.rmsnorm(p["ln2"], x, eps))
+        return x + y, kv
     if btype == "ssm":
         dims = ssm_mod.SSMDims.from_cfg(cfg)
-        xin = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
+        xin = layers.rmsnorm(p["ln1"], x, eps)
         y, final = ssm_mod.ssm_forward(p["ssm"], xin, dims)
         # conv buffer = the last (width-1) conv inputs, before the conv
         _, xc, Bc, Cc, _ = ssm_mod._split_proj(
             p["ssm"], xin[:, -(dims.conv_width - 1):, :], dims)
         buf = torch.cat([xc, Bc, Cc], dim=-1).to(final.dtype)
         return x + y, ssm_mod.SSMCache(buf, final)
+    if btype == "rec":
+        xin = layers.rmsnorm(p["ln1"], x, eps)
+        y, hfin = rglru_mod.rglru_forward(p["rglru"], xin)
+        # conv buffer = the last (width-1) conv inputs, before the conv
+        xconv = xin[:, -(cfg.conv_width - 1):, :] @ p["rglru"]["w_in"].to(
+            x.dtype)
+        x = x + y
+        x = x + layers.ffn(p["ffn"], layers.rmsnorm(p["ln2"], x, eps))
+        return x, rglru_mod.RGLRUCache(xconv, hfin)
     raise _block_error(btype)
 
 
 def _block_decode(cfg: ModelConfig, btype: str, p: Dict, x_t: torch.Tensor,
                   cache, t):
+    eps = cfg.norm_eps
+    if btype == "attn":
+        h, cache = attn_mod.decode_attention(
+            p["attn"], layers.rmsnorm(p["ln1"], x_t, eps), cache, t,
+            theta=cfg.rope_theta, window=cfg.attn_window)
+        x_t = x_t + h
+        y, _ = _ffn_or_moe(cfg, p,
+                           layers.rmsnorm(p["ln2"], x_t, eps)[:, None, :])
+        return x_t + y[:, 0, :], cache
     if btype == "ssm":
         dims = ssm_mod.SSMDims.from_cfg(cfg)
         y, cache = ssm_mod.ssm_decode_step(
-            p["ssm"], layers.rmsnorm(p["ln1"], x_t, cfg.norm_eps), cache,
-            dims)
+            p["ssm"], layers.rmsnorm(p["ln1"], x_t, eps), cache, dims)
         return x_t + y, cache
+    if btype == "rec":
+        y, cache = rglru_mod.rglru_decode_step(
+            p["rglru"], layers.rmsnorm(p["ln1"], x_t, eps), cache)
+        x_t = x_t + y
+        x_t = x_t + layers.ffn(p["ffn"], layers.rmsnorm(p["ln2"], x_t, eps))
+        return x_t, cache
     raise _block_error(btype)
 
 

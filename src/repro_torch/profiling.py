@@ -67,8 +67,9 @@ def call_ms(fn: Callable[[], object], reps: int = 200) -> float:
 
 
 def round_profile(one_round: Callable[[], object],
-                  kernel_names: Sequence[str] = ()) -> Dict[str, object]:
-    """Wall time of ``one_round()`` (median of 3, host clock around
+                  kernel_names: Sequence[str] = (),
+                  walls: int = 3) -> Dict[str, object]:
+    """Wall time of ``one_round()`` (median of ``walls``, host clock around
     ``torch.cuda.synchronize()``), and from torch.profiler over one more,
     tracing the device's activity only (tracing the host's ops as well
     costs several times the wall time of a round that launches half a
@@ -78,13 +79,13 @@ def round_profile(one_round: Callable[[], object],
     the eight costliest kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    walls = []
-    for _ in range(3):
+    walls_ms = []
+    for _ in range(walls):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         one_round()
         torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
+        walls_ms.append((time.perf_counter() - t0) * 1e3)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         one_round()
         torch.cuda.synchronize()
@@ -106,7 +107,8 @@ def round_profile(one_round: Callable[[], object],
         for key, (t, c) in by_name.items():
             if name in key:
                 per_kernel[name] = (t, c)
-    return {"round_wall_ms": statistics.median(walls), "walls_ms": walls,
+    return {"round_wall_ms": statistics.median(walls_ms),
+            "walls_ms": walls_ms,
             "round_device_ms": dev_us / 1e3 if dev_us else None,
             "device_launches": launches, "per_kernel_us": per_kernel,
             "top": top[:8]}

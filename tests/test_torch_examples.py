@@ -37,7 +37,7 @@ def test_quickstart_main_tiny():
 
 def test_compress_llm_update_main_tiny():
     ex = _load("compress_llm_update_torch")
-    err = ex.main(["--arch", "mamba2-370m", "--steps", "2",
+    err = ex.main(["--arch", "tinyllama-1.1b", "--steps", "2",
                    "--local-iters", "1", "--device", "cpu"])
     assert err <= 1e-4, err
 

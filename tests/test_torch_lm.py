@@ -109,25 +109,14 @@ def test_model_config_is_a_field_for_field_copy():
     assert cbase.get_config("mamba2_370m") == mamba2_370m.CONFIG
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "recurrentgemma-2b",
-                                  "seamless-m4t-medium"])
-def test_unported_archs_raise(arch):
-    assert arch in cbase.ARCH_IDS
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cbase.get_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cbase.get_smoke_config(arch)
-
-
-def test_unknown_arch_and_unported_blocks_raise():
+def test_unknown_arch_and_block_raise():
     with pytest.raises(ValueError, match="unknown arch"):
         cbase.get_config("gpt-17")
-    with pytest.raises(NotImplementedError, match="enc-dec"):
-        build_model(_cfg().replace(enc_layers=2))
+    with pytest.raises(ValueError, match="unknown arch"):
+        cbase.get_smoke_config("gpt-17")
     gen = torch.Generator().manual_seed(0)
-    for btype in ("attn", "rec"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            LM(_cfg().replace(block_pattern=(btype,))).init(gen)
+    with pytest.raises(ValueError, match="unknown block type"):
+        LM(_cfg().replace(block_pattern=("mlp",))).init(gen)
 
 
 def test_param_tree_matches_the_reference_layout():
@@ -225,7 +214,8 @@ def test_serve_main_on_the_cpu(argv, capsys):
 def test_serve_greedy_tokens_follow_the_logits():
     """The driver's tokens are the argmax of the model's own logits: the
     same params and prompt through prefill and decode_step by hand."""
-    res = serve.main(["--device", "cpu", "--gen", "3", "--batch", "2"])
+    res = serve.main(["--arch", "mamba2-370m", "--device", "cpu", "--gen",
+                      "3", "--batch", "2"])
     with torch.inference_mode():
         logits, cache, t = res.model.prefill(res.params, res.prompt, 35)
         tok = torch.argmax(logits, -1)
@@ -241,7 +231,12 @@ def test_serve_greedy_tokens_follow_the_logits():
 
 def test_serve_rejects_a_prompt_the_kernel_route_cannot_take():
     with pytest.raises(ValueError, match="does not divide"):
-        serve.main(["--device", "cpu", "--ssd-kernel", "--prompt-len", "13"])
+        serve.main(["--arch", "mamba2-370m", "--device", "cpu",
+                    "--ssd-kernel", "--prompt-len", "13"])
+    # an architecture with no SSM layer has no B4 route
+    with pytest.raises(ValueError, match="no SSM layers"):
+        serve.main(["--arch", "tinyllama-1.1b", "--device", "cpu",
+                    "--ssd-kernel"])
 
 
 def test_serve_without_cuda_raises_unless_cpu_is_asked(monkeypatch):

@@ -280,12 +280,6 @@ def test_lm_smoke_trainer_writes_reference_rows(tmp_path, compressor, extra,
     assert cfg["drop_rate"] == (0.5 if "--drop-rate" in extra else 0.0)
 
 
-def test_lm_trainer_refuses_unported_archs(tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        train.main(["--arch", "tinyllama-1.1b", "--smoke", "--device", "cpu",
-                    "--out", str(tmp_path)])
-
-
 @pytest.mark.parametrize("per_client,seq,want", [
     (2, 4096, 2), (16, 4096, 8), (6, 8192, 6), (12, 4096, 6), (4, 64, 1),
     (32, 2048, 1)])

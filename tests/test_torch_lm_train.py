@@ -265,9 +265,19 @@ def test_syn_spec_matches_reference(rank):
     assert spec.floats == jspec.floats
 
 
-def test_syn_spec_refuses_the_unported_enc_dec():
-    with pytest.raises(NotImplementedError, match="enc-dec"):
-        syn_spec_for(_cfg().replace(enc_layers=2), CompressorConfig())
+@pytest.mark.parametrize("rank", [0, 8])
+def test_syn_spec_matches_reference_for_an_enc_dec_config(rank):
+    """With ``enc_layers`` the payload's inputs take ENC_SYN_LEN encoder
+    frames ahead of the decoder's positions; the labels cover the
+    decoder's only."""
+    comp = dict(syn_seq=4, soft_label_rank=rank)
+    jspec = jsyn_spec_for(jget_smoke_config("mamba2-370m").replace(
+        enc_layers=2), JCompressorConfig(**comp))
+    spec = syn_spec_for(_cfg().replace(enc_layers=2), CompressorConfig(**comp))
+    assert (spec.x_shape, spec.num_classes, spec.label_rank,
+            spec.label_lead) == (jspec.x_shape, jspec.num_classes,
+                                 jspec.label_rank, jspec.label_lead)
+    assert spec.x_shape[1] == 8 + 4 and spec.floats == jspec.floats
 
 
 def _syn0(rank, seed=3):
