@@ -203,14 +203,34 @@ Phases, in order; any failure exits non-zero:
              calls, the server's decode at the reference's bound;
              llama4-scout's in bf16); (d) every architecture's smoke
              config in f32, card vs CPU: loss, gradient, prefill logits
-             and 4 decode steps within 1e-4, MoE routing bitwise.
+             and 4 decode steps within 1e-4, MoE routing bitwise;
+             (b)'s training runs through the donating engine, and its
+             peak device memory is printed apart from the profiled round's
+             (called directly, which does not donate).
+
+20. static analysis — the round contracts of ``repro_torch.analysis``
+             (``scripts/check_static_torch.py``'s matrix) on the card:
+             (a) all 56 configurations at the tiny shapes, the 28
+             mesh-free ones on this device and the 28 sharded ones on one
+             NCCL rank, recorded through ``RoundRecorder``: 0 violations
+             of the five contracts, every contract evaluated, and each
+             3SFC point's launches (B1 S+1 and B2 once a client) and each
+             signSGD codec point's (B3a and B1 once a client, one B3b) as
+             pinned; (b) every point's client scope under the card's sync
+             debug mode: its synchronizing-operation warnings equal the
+             recorded host reads and what the gate allows (none); (c) EF
+             donation on the main path (N=10, K=5, B=32, S=10): a
+             donating and an undonated engine round in turns, the
+             collector off, each after a reset of the peak: the donated
+             peak lower by at least 0.9 x the EF tree's 7,968,400 B, and
+             every round bitwise the undonated one.
 
 Phase 7 adds the full-width mamba2 round's profile and B1, B2 (with
 ``torch.addcmul`` beside), B3a and B3b at mamba2's d, the wall time of
 a main-path round under phase 17 (a) beside the single-process round, in
 turns, and phase 19's tinyllama prefill and round profiles (taken there,
 while their models were on the card). The phases run in the order 1-6,
-8-19, 7, so that the times can report each kernel's launches on its
+8-20, 7, so that the times can report each kernel's launches on its
 path. The last lines are the run's
 wall time from the script's start, the card's name and power limit, one
 JSON object with every kernel's numbers, the list of kernels, and
@@ -233,6 +253,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+import warnings
 
 # the whole run's wall clock starts here, before torch is imported
 _T0 = time.perf_counter()
@@ -244,6 +265,7 @@ import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.analysis import contracts, ir  # noqa: E402
 from repro_torch.comm import Codec, frame  # noqa: E402
 from repro_torch.comm.transport import (SocketServer,  # noqa: E402
                                         spawn_local_workers)
@@ -265,6 +287,7 @@ from repro_torch.fl.engine import (LiveRoundLoop, RetryPolicy,  # noqa: E402
                                    RoundEngine, token_batcher,
                                    vision_batcher)
 from repro_torch.fl.round import FLState, build_fl_round, fl_init  # noqa: E402
+from repro_torch.fl import round as round_lib  # noqa: E402
 from repro_torch.fl import sharding as sharding_mod  # noqa: E402
 from repro_torch.fl.sharding import make_fl_shardings  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
@@ -438,6 +461,8 @@ SMOKE_TOL = dict(rtol=1e-4, atol=1e-4)
 SMOKE_T, SMOKE_DECODE = 16, 4
 # B1-B3 at mamba2's d in CUDA graphs: calls per graph and replays
 LM_TIME_REPS, LM_TIME_REPLAYS = 10, 11
+# phase 20: rounds of the donated and the undonated engine, in turns
+DONATION_ROUNDS = 2
 # vectors of 4 Mi + 5 elements the B5/B6 timing rotates over: 6 x 16.8 MB
 # of inputs, twice the H100's 50 MB L2
 L2_ROTATE = 6
@@ -2942,7 +2967,10 @@ def phase_times(dev, launched, errs, families, rounds):
                         f" N={LM_N}, K=1, B={LM_BATCH}, S={LM_SEQ}, fused "
                         f"decode)", "train")):
         print_profile(label, families[key])
-        print(f"    peak device memory {families[key]['peak_gib']:.2f} GiB")
+        print(f"    peak device memory {families[key]['peak_gib']:.2f} GiB"
+              + (f" (the engine's rounds; the profiled round "
+                 f"{families[key]['round_peak_gib']:.2f} GiB)"
+                 if key == "train" else ""))
     print(f"    {TL_ARCH} decode {families['serve']['decode_ms_per_step']:.3f}"
           f" ms per step (batch {SERVE_BATCH})")
     for label, one_round in rounds:
@@ -3504,21 +3532,27 @@ def phase_tl_train(out_dir: str, dev) -> dict:
           f"{m.loss.tolist()}, mean cosines "
           f"{m.cosine.mean(axis=1).tolist()}; {wall:.2f} s for "
           f"{LM_ROUNDS} rounds (first use included); launches {launched}; "
-          f"peak device memory {peak:.2f} GiB")
+          f"peak device memory {peak:.2f} GiB over the donating engine's "
+          f"rounds")
     model, strategy, run = train.lm_setup(
         lm_args(LM_N, LM_BATCH, *TL_FLAGS, arch=TL_ARCH), cfg, LM_COMP,
         LM_SEQ)
     one_round = build_fl_round(model.loss, strategy, run)
     inputs = lm_batches(dev, cfg, LM_N, LM_BATCH, LM_SEQ, 83)
     torch.cuda.reset_peak_memory_stats()
+    # the round called directly does not donate: it keeps the trained state
+    # for every call, and holds a second EF tree
     prof = round_profile(lambda: one_round(state, inputs, 0), KERNEL_NAMES,
                          walls=LM_ROUNDS)
-    peak = max(peak, peak_gib())
+    round_peak = peak_gib()
     print_profile(f"{TL_ARCH} 3SFC round at full width (N={LM_N}, K=1, "
                   f"B={LM_BATCH}, S={LM_SEQ}, fused decode, round "
                   f"{state.round})", prof)
-    return {**prof, "peak_gib": peak, "d": d, "payload_floats": payload,
-            "train_wall_s": wall, "launches": launched}
+    print(f"  the profiled round, called directly (no donation): peak "
+          f"device memory {round_peak:.2f} GiB")
+    return {**prof, "peak_gib": peak, "round_peak_gib": round_peak, "d": d,
+            "payload_floats": payload, "train_wall_s": wall,
+            "launches": launched}
 
 
 @contextlib.contextmanager
@@ -3832,6 +3866,198 @@ def phase_lm_families(out_dir: str, dev) -> dict:
             "smoke": smoke, "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the static-analysis gate's round contracts on the card
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def sync_warnings(into: list):
+    """Within: the card's sync debug mode warns on every synchronizing
+    operation; those warnings are appended to ``into`` (as file:line:
+    message)."""
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    into.extend(f"{w.filename}:{w.lineno}: {w.message}" for w in rec
+                if "called a synchronizing CUDA operation" in str(w.message))
+
+
+def matrix_launches(config) -> dict:
+    """The launches one tiny round of ``config`` must make, where the
+    contracts' matrix pins them: every 3SFC point B1 S+1 times and B2 once
+    a client; every signSGD codec point B3a and B1 once a client and one
+    B3b for the round's frames."""
+    n, s = ir.TINY_N, 2
+    if config["kind"] == "threesfc":
+        return only(fused_cosine=n * (s + 1), ef_update=n)
+    if config["kind"] == "signsgd" and config["wire"] == "codec":
+        return only(fused_cosine=n, pack_signs=n, unpack_signs=1)
+    return None
+
+
+def card_matrix(configs, ctx) -> tuple:
+    """Each point of ``configs`` recorded on the card, its client scope
+    under the sync debug mode: (records, sync warnings per label, the
+    pinned points' launches)."""
+    records, syncs, launched = [], {}, {}
+    for cfg in configs:
+        got: list = []
+        hook = lambda: sync_warnings(got)
+        round_lib.SCOPE_HOOKS.append(hook)
+        try:
+            reset_counts()
+            rec = ir.record_round(cfg, ctx)
+            torch.cuda.synchronize()
+        finally:
+            round_lib.SCOPE_HOOKS.remove(hook)
+        records.append(rec)
+        syncs[rec.label] = got
+        want = matrix_launches(cfg)
+        if want is not None:
+            if counts() != want:
+                raise AssertionError(f"{rec.label}: launches {counts()}, "
+                                     f"expected {want}")
+            launched[rec.label] = counts()
+    return records, syncs, launched
+
+
+def check_donated_round(r: int, states: dict, ms: dict) -> None:
+    """Round ``r`` of the donating engine (``True``) bitwise the
+    undonated one's: params, EF and metrics."""
+    diff = ranks_mod.tree_bits_diff(
+        (states[True].params, states[True].ef),
+        (states[False].params, states[False].ef))
+    if diff is not None or any(
+            not ranks_mod.bits_equal(getattr(ms[True], f),
+                                     getattr(ms[False], f))
+            for f in ("loss", "cosine", "payload_floats", "update_norm")):
+        raise AssertionError(f"round {r}: donated and undonated rounds "
+                             f"differ ({diff})")
+
+
+def donation_pair(dev) -> dict:
+    """The main path's round (the trainer's MLP, 3SFC+EF, N, K, B, S)
+    through a donating and an undonated engine, in turns, each round after
+    a reset of the peak: the donated peak lower by at least 0.9 x the EF
+    tree's bytes, and every round bitwise the same."""
+    args = train.parse_args(["--clients", str(N), "--local-steps", str(K),
+                             "--batch", str(B), "--device", "cuda"])
+    spec = DATASETS[args.dataset]
+    model, params = train.vision_model(args.model, spec, args.seed, dev)
+    comp = matched_compressors(args.model, spec,
+                               flat.tree_size(params))[args.compressor]
+    run = RunConfig.from_flags(args, compressor=comp)
+    strategy = train.vision_strategy(model, spec, run.fl)
+    train_set, pools = train.vision_data(spec, run.fl, args.train_size, dev)
+    states, engines = {}, {}
+    for donate in (True, False):
+        engines[donate] = RoundEngine(
+            build_fl_round(model.loss, strategy, run),
+            vision_batcher(train_set.x, train_set.y, pools, K, B),
+            seed=args.seed, donate=donate)
+        states[donate] = engines[donate].init_state(params, N, strategy)
+    ef_bytes = sum(t.numel() * t.element_size()
+                   for t in flat.tree_leaves(states[True].ef))
+    storages = [t.untyped_storage().data_ptr()
+                for t in flat.tree_leaves(states[True].ef)]
+    peaks = {True: [], False: []}
+    # the collector stays off while a round is measured: the autograd
+    # graphs of the encoder's double backward leave cycles, and a
+    # collection at a moment that differs between the two rounds moves
+    # the peak by more than the EF
+    gc.disable()
+    try:
+        for r in range(DONATION_ROUNDS):
+            ms = {}
+            for donate in (True, False):
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                states[donate], ms[donate] = engines[donate].run_block(
+                    states[donate], 1)
+                torch.cuda.synchronize()
+                peaks[donate].append(torch.cuda.max_memory_allocated())
+            check_donated_round(r, states, ms)
+    finally:
+        gc.enable()
+    if [t.untyped_storage().data_ptr()
+            for t in flat.tree_leaves(states[True].ef)] != storages:
+        raise AssertionError("the donated EF left its storage")
+    gaps = [u - d for d, u in zip(peaks[True], peaks[False])]
+    if min(gaps) < 0.9 * ef_bytes:
+        raise AssertionError(f"donated peaks {peaks[True]} B, undonated "
+                             f"{peaks[False]} B: gaps {gaps} under 0.9 x "
+                             f"the EF's {ef_bytes} B")
+    print(f"  (c) donation on the main path (N={N}, K={K}, B={B}, S={S}, "
+          f"EF {ef_bytes:,} B): peaks {peaks[True]} B donated, "
+          f"{peaks[False]} B not, in turns: gaps {gaps} B "
+          f"({min(gaps) / ef_bytes:.4f} x the EF); {DONATION_ROUNDS} rounds "
+          f"bitwise equal")
+    return {"ef_bytes": ef_bytes, "donated_peak": peaks[True],
+            "undonated_peak": peaks[False], "gaps": gaps}
+
+
+def phase_contracts(dev) -> dict:
+    """Phase 20: (a) the contracts' matrix on the card, the mesh-free points
+    on this device and the sharded ones on one NCCL rank; (b) in every
+    point's client scope the sync warnings equal the recorded host reads
+    and what the gate allows; (c) EF donation on the main path."""
+    phase("static-analysis contracts on the card: the round matrix at tiny "
+          "shapes, client-scope syncs, EF donation")
+    t0 = time.perf_counter()
+    configs = ir.iter_round_configs()
+    local = [c for c in configs if c["fanout"] == "vmap"]
+    records, syncs, launched = card_matrix(local, ir.build_context(dev))
+    with nccl_one_rank(dev) as mesh:
+        sharded = [c for c in configs if c["fanout"] == "shard_map"]
+        more, more_syncs, more_launched = card_matrix(
+            sharded, ir.build_context(dev, mesh))
+    records += more
+    syncs.update(more_syncs)
+    launched.update(more_launched)
+    report = contracts.run_contracts(records)
+    if report["violations"] or report["configs_evaluated"] != len(configs):
+        bad = {k: c["violations"] for k, c in report["contracts"].items()
+               if c["violations"]}
+        raise AssertionError(f"(a) {report['configs_evaluated']} of "
+                             f"{len(configs)} configs, violations {bad}")
+    if any(c["evaluated"] == 0 for c in report["contracts"].values()):
+        raise AssertionError(f"(a) a contract evaluated nothing: "
+                             f"{report['contracts']}")
+    print(f"  (a) {report['configs_evaluated']} configs ({len(local)} on "
+          f"{dev}, {len(sharded)} on one NCCL rank), "
+          f"{report['rules_evaluated']} contract evaluations "
+          + ", ".join(f"{k} {c['evaluated']}"
+                      for k, c in report["contracts"].items())
+          + f": 0 violations; pinned launches matched on "
+          f"{len(launched)} points")
+    for rec in records:
+        want = contracts.EXPECTED_HOST_SYNCS.get(rec.config["kind"], 0)
+        got = syncs[rec.label]
+        if len(got) != sum(rec.host_syncs.values()) or len(got) != want:
+            raise AssertionError(f"(b) {rec.label}: {len(got)} sync "
+                                 f"warnings {got[:4]}, recorded host reads "
+                                 f"{rec.host_syncs}, allowed {want}")
+    warned = {k: sum(len(syncs[r.label]) for r in records
+                     if r.config["kind"] == k)
+              for k in report["host_syncs_by_kind"]}
+    print(f"  (b) sync warnings in the client scope per strategy: {warned}; "
+          f"host reads recorded: {report['host_syncs_by_kind']}")
+    donation = donation_pair(dev)
+    wall = time.perf_counter() - t0
+    print(f"  phase 20 wall {wall:.1f} s")
+    return {"configs": report["configs_evaluated"],
+            "rules_evaluated": report["rules_evaluated"],
+            "host_syncs_by_kind": report["host_syncs_by_kind"],
+            "donation": donation, "wall_s": wall}
+
+
 def main() -> int:
     phase("device")
     if not torch.cuda.is_available():
@@ -3883,6 +4109,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
         families = phase_lm_families(out_dir, dev)
     free_card()
+    static = phase_contracts(dev)
     lm_state = state_to(lm_state, dev)
     lm_cfg = get_config("mamba2-370m")
     lm_model, lm_strategy, lm_run = train.lm_setup(
@@ -3928,6 +4155,7 @@ def main() -> int:
                                  fanout_bytes}}))
     print(json.dumps({"host_layers": host_layers}))
     print(json.dumps({"lm_families": families}))
+    print(json.dumps({"static_contracts": static}))
 
     print(f"chip_smoke wall {time.perf_counter() - _T0:.1f} s (from the "
           f"script's start, the kernels' build included)")

@@ -168,6 +168,11 @@ class Codec:
             self.treedef, [torch.empty(s, device="meta") for s in self.shapes])
         self.spec = frame.FrameSpec(self.kind, policy,
                                     tuple(self._section_bytes()))
+        if leaves and leaves[0].device.type != "meta":
+            # the static header goes to the params' device now: a frame
+            # encoded inside a client's step then copies nothing from the
+            # host (no sync on the card)
+            frame._static_on(self.spec, leaves[0].device)
 
     # -- static layout -----------------------------------------------------
     @property

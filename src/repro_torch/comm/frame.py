@@ -162,7 +162,8 @@ _ON_DEVICE: Dict[Tuple[FrameSpec, torch.device], torch.Tensor] = {}
 
 
 def _static_on(spec: FrameSpec, device: torch.device) -> torch.Tensor:
-    """The static header as a tensor on ``device``, copied there once."""
+    """The static header as a tensor on ``device``, copied there once
+    (``Codec`` does that when it is built, outside any round)."""
     h = _ON_DEVICE.get((spec, device))
     if h is None:
         h = torch.from_numpy(_static_header(spec)).to(device)

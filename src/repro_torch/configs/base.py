@@ -1,7 +1,8 @@
 """Model, FL and compressor configuration, and the architecture registry.
 
-A copy of ``ModelConfig``, ``CompressorConfig`` and ``FLConfig`` from the
-JAX package's ``configs/base.py``, field for field, so a run's
+A copy of ``ModelConfig``, ``CompressorConfig``, ``FLConfig`` and
+``ShapeConfig`` (with the ``INPUT_SHAPES`` it names) from the JAX
+package's ``configs/base.py``, field for field, so a run's
 configuration reads the same in both packages. Every architecture of
 ``ARCH_IDS`` has a module in this package defining ``CONFIG`` (the
 published widths) and ``smoke_config()`` (the reduced CPU-test variant),
@@ -120,6 +121,22 @@ class FLConfig:
     seed: int = 0
 
 
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                        # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
 # ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
@@ -155,3 +172,7 @@ def get_config(arch_id: str) -> ModelConfig:
 
 def get_smoke_config(arch_id: str) -> ModelConfig:
     return _config_module(arch_id).smoke_config()
+
+
+def list_archs():
+    return list(ARCH_IDS)

@@ -89,7 +89,8 @@ def _device_of(tree: PyTree) -> torch.device:
 
 
 def _scalar(v: float, like: PyTree) -> torch.Tensor:
-    return torch.tensor(v, dtype=torch.float32, device=_device_of(like))
+    # a fill on the device: no host-to-device copy, so no sync on the card
+    return torch.full((), v, dtype=torch.float32, device=_device_of(like))
 
 
 # ---------------------------------------------------------------------------

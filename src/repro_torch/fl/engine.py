@@ -24,6 +24,18 @@ so how rounds are grouped into blocks never changes the trajectory: blocks
 round's fault schedule is a pure function of ``(fault_seed, absolute
 round)`` too (``repro_torch.fl.faults``), so the same holds under faults.
 
+EF donation: ``RoundEngine(..., donate=True)`` (the default, as the
+reference's) hands every round its input state to consume: the round
+writes each client's new EF row into that state's own EF tensors
+(``build_fl_round``'s ``donate=True``), so the N×d residual is never held
+twice. Where JAX raises on a donated buffer's reuse, a torch tensor just
+holds the next round's values, so a donated ``FLState`` must never be
+touched after the call: every ``run*`` method returns the state that
+replaces it, and the engine refuses a state whose EF it already donated to
+a later round. ``init_state`` copies the params it is given, so the
+caller's model tree survives; ``donate=False`` keeps every input state
+intact, at one more N×d tree a round.
+
 Sharded fan-out: with ``RoundEngine(..., shardings=FLShardings)``
 (``repro_torch.fl.sharding``) every rank runs the same engine; its state
 holds the EF rows of the rank's own clients (``init_state`` places it), and
@@ -50,6 +62,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from typing import (Any, Callable, Dict, List, NamedTuple, Optional, Sequence,
                     Tuple)
 
@@ -251,22 +264,30 @@ class RoundEngine:
     batches. ``run`` fetches metrics once per eval block; ``run_loop`` is
     the per-round reference loop with two scalar syncs per round. Both run
     the same rounds in the same order, so they agree bitwise. With
-    ``shardings`` (the round built with ``client_parallel='shard_map'``)
-    the state holds this rank's EF rows."""
+    ``donate`` (the default) each round consumes the state it is handed
+    (see the module docstring); with ``shardings`` (the round built with
+    ``client_parallel='shard_map'``) the state holds this rank's EF rows,
+    and each rank donates its own."""
 
     def __init__(self, round_fn: RoundFn, batch_fn: BatchFn, *,
-                 seed: int = 0, shardings=None):
+                 seed: int = 0, donate: bool = True, shardings=None):
         self._data_seed = fold_in(seed, _DATA_FOLD)
         self._round_seed = fold_in(seed, _ROUND_FOLD)
         self._round_fn = round_fn
         self._batch_fn = batch_fn
+        self.donate = donate
         self._shardings = shardings
+        # (weak reference to the first EF leaf of the last donated round's
+        # state, that state's round): the EF leaves stay the same tensors
+        # from round to round, so a state holding them at another round
+        # has been consumed
+        self._donated = None
         self.stats = EngineStats()
 
     def init_state(self, params: PyTree, num_clients: int,
                    strategy=None, *, staleness_max: int = 0) -> FLState:
         """``fl_init`` on a copy of ``params``, so the caller's tensors are
-        never the state's, placed by the engine's shardings when it has
+        never the state's (donation never consumes them), placed by the engine's shardings when it has
         them; pass ``staleness_max=run.staleness_max`` when the round was
         built with staleness."""
         state = fl_init(tree_map(torch.clone, params), num_clients, strategy,
@@ -325,7 +346,21 @@ class RoundEngine:
         batches = self._batch_fn(self._data_seed, state.round)
         key = fold_in(self._round_seed, state.round)
         self.stats.dispatches += 1
-        return self._round_fn(state, batches, key)
+        if not self.donate:
+            return self._round_fn(state, batches, key)
+        ef = tree_leaves(state.ef)
+        if (self._donated is not None and ef
+                and self._donated[0]() is ef[0]
+                and state.round != self._donated[1]):
+            raise RuntimeError(
+                f"this FLState (round {state.round}) was donated to an "
+                f"earlier round and its EF now holds round "
+                f"{self._donated[1]}'s; continue from the state the engine "
+                f"returned, or build the engine with donate=False")
+        state, m = self._round_fn(state, batches, key, donate=True)
+        ef = tree_leaves(state.ef)
+        self._donated = (weakref.ref(ef[0]), state.round) if ef else None
+        return state, m
 
     def run_block(self, state: FLState,
                   length: int) -> Tuple[FLState, RoundMetrics]:

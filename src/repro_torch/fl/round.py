@@ -59,6 +59,13 @@ codec's dequantized view, so wherever the codec is lossless the round
 equals the float-mode round, and ``RoundMetrics.wire_bytes_up`` is the
 measured frame size (0 in float mode).
 
+Each client's step runs inside ``client_scope()``: a profiler range named
+``CLIENT_SCOPE`` (as the reference names its scope) and the hooks of
+``SCOPE_HOOKS``, through which ``repro_torch.analysis.contracts`` records
+what the step does (no collective, no host read of a tensor's value).
+With ``donate=True`` (``RoundEngine``'s default) the round writes the new
+EF rows into the input state's EF tensors instead of a second N×d tree.
+
 Randomness: client ``i``'s encoder draws from a ``torch.Generator`` seeded
 with ``fold_in(key, i)``, where ``key`` is the round's integer seed; the
 round function's ``syn0`` argument replaces those draws with given initial
@@ -69,7 +76,8 @@ rank's local one.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+import contextlib
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -77,13 +85,43 @@ import torch
 from repro_torch.configs.base import FLConfig
 from repro_torch.configs.run import RunConfig
 from repro_torch.core import flat
-from repro_torch.core.strategy import CompressionStrategy
+from repro_torch.core.strategy import CompressionStrategy, warn_deprecated_once
 from repro_torch.core.threesfc import SynData
 from repro_torch.fl import faults as faults_lib
 from repro_torch.fl.client import local_train
 from repro_torch.fl.server import aggregate, server_update
 
 PyTree = Any
+
+# The per-client local-train + encode region, named as the reference names
+# its scope: a profiler range of this name wraps every client's step, so
+# the card's traces label it, and ``in_client_scope()`` tells the contract
+# recorder (``repro_torch.analysis.contracts``) that a call falls inside it.
+CLIENT_SCOPE = "fl_client_local"
+# context-manager factories entered around every client's step, inside the
+# profiler range (the recorder and the card's sync check install theirs)
+SCOPE_HOOKS: List[Callable[[], Any]] = []
+_scope_depth = 0
+
+
+def in_client_scope() -> bool:
+    """Whether the caller runs inside a client's step."""
+    return _scope_depth > 0
+
+
+@contextlib.contextmanager
+def client_scope():
+    """The ``CLIENT_SCOPE`` region around one client's step."""
+    global _scope_depth
+    with torch.profiler.record_function(CLIENT_SCOPE), \
+            contextlib.ExitStack() as hooks:
+        for hook in SCOPE_HOOKS:
+            hooks.enter_context(hook())
+        _scope_depth += 1
+        try:
+            yield
+        finally:
+            _scope_depth -= 1
 
 _MASK64 = (1 << 64) - 1
 
@@ -301,11 +339,18 @@ def build_fl_round(
     ``run.staleness_max``.
 
     The returned ``fl_round(state, client_batches, key, weights=None,
-    syn0=None)`` takes the (N, K, B, ...) batch tree, the round's integer
-    seed, optional aggregation weights and an optional per-client initial
-    ``SynData`` (leading axis N). It returns a fresh state: the input
-    state's tensors are not written. Under ``client_parallel='shard_map'``
-    the state's EF tree and the batch tree hold this rank's clients only.
+    syn0=None, *, donate=False)`` takes the (N, K, B, ...) batch tree, the
+    round's integer seed, optional aggregation weights and an optional
+    per-client initial ``SynData`` (leading axis N). By default it returns
+    a fresh state and writes none of the input state's tensors. With
+    ``donate=True`` (what ``RoundEngine`` passes) it writes each client's
+    new EF row into the input state's own EF tensors, which the returned
+    state then holds: no second N×d tree. Client ``j`` reads its row
+    before anything writes it and nothing reads it after, so the round is
+    bitwise the undonated one; the input state is consumed (its EF is the
+    new round's). Under ``client_parallel='shard_map'`` the state's EF
+    tree and the batch tree hold this rank's clients only, and each rank
+    donates its own rows.
     """
     cfg: FLConfig = run.fl
     fused = run.fused_decode
@@ -396,7 +441,7 @@ def build_fl_round(
 
     def fl_round(state: FLState, client_batches: PyTree, key: int,
                  weights: Optional[torch.Tensor] = None,
-                 syn0: Optional[SynData] = None
+                 syn0: Optional[SynData] = None, *, donate: bool = False
                  ) -> Tuple[FLState, RoundMetrics]:
         params = state.params
         device = flat.tree_leaves(params)[0].device
@@ -415,7 +460,8 @@ def build_fl_round(
                 f"a shard_map round takes this rank's {len(clients)} EF "
                 f"rows (FLShardings.place_state), got "
                 f"{flat.tree_leaves(state.ef)[0].shape[0]}")
-        new_ef = flat.tree_map(torch.empty_like, state.ef)
+        new_ef = (state.ef if donate
+                  else flat.tree_map(torch.empty_like, state.ef))
         msgs, losses, cos, floats = [], [], [], []
         # in one process a message tree goes straight into its row of the
         # (N, ...) tensors, so the round never holds the N trees twice
@@ -429,11 +475,15 @@ def build_fl_round(
                      else client_generator(key, i, device))
             # every client trains and encodes, scheduled or not, as in the
             # reference (its cosine is reported either way)
-            out = client_step(params, batches_i, ef_i, key_i, i, state.round)
+            with client_scope():
+                out = client_step(params, batches_i, ef_i, key_i, i,
+                                  state.round)
             ef_row = out.ef
             if faulted and not (part[i] and deliv[i]):
                 ef_row = missed_ef(strategy, out, ef_i, part[i])
             # the new residual row goes straight into the (N, ...) tensors
+            # (donated: into row j of the input's, which ef_i views and
+            # nothing reads after this)
             flat.tree_map(lambda dst, src: dst[j].copy_(src), new_ef, ef_row)
             if stack_rows:
                 if j == 0:
@@ -495,3 +545,46 @@ def build_fl_round(
         return FLState(new_params, new_ef, state.round + 1, buf, buf_w), rm
 
     return fl_round
+
+
+# ---------------------------------------------------------------------------
+# deprecated shim: the old 10-knob factory over the new pipeline
+# ---------------------------------------------------------------------------
+
+
+def make_fl_round(
+    loss_fn: Callable[[PyTree, Dict], torch.Tensor],
+    compressor,
+    cfg: FLConfig,
+    *,
+    num_micro: int = 1,
+    fused_decode: bool = False,
+    syn_loss_fn: Callable = None,
+    syn_spec=None,
+    client_parallel: str = "vmap",
+    mesh=None,
+    wire: str = "float",
+    codec=None,
+) -> Callable[..., Tuple[FLState, RoundMetrics]]:
+    """Deprecated: build a ``RunConfig`` and call ``build_fl_round``.
+
+    ``compressor`` may be a ``TreeCompressor`` (its strategy is used) or a
+    ``CompressionStrategy`` directly. The legacy ``syn_loss_fn``/``syn_spec``
+    pair is required with ``fused_decode`` for signature compatibility but
+    the strategy's own hooks (identical by construction) do the work.
+    """
+    warn_deprecated_once(
+        "make_fl_round",
+        "repro_torch.fl.round.build_fl_round(loss_fn, strategy, "
+        "RunConfig(...))")
+    if fused_decode and (syn_loss_fn is None or syn_spec is None):
+        raise ValueError("fused_decode needs the 3SFC syn_loss_fn + syn_spec")
+    strategy = getattr(compressor, "strategy", compressor)
+    run = RunConfig(fl=cfg, client_parallel=client_parallel, wire=wire,
+                    fused_decode=fused_decode, num_micro=num_micro,
+                    mesh=mesh)
+    return build_fl_round(loss_fn, strategy, run, codec=codec)
+
+
+# convenience alias used in docs/examples
+fl_round = make_fl_round

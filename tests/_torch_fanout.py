@@ -49,6 +49,10 @@ KINDS = {
     "stc": dict(kind="stc", keep_ratio=0.05),
     "threesfc": dict(kind="threesfc", syn_steps=2, syn_lr=0.1),
 }
+# every registered kind: the reference's engine kinds and the two without
+# a wire format
+ALL_KINDS = {**KINDS, "randk": dict(kind="randk", keep_ratio=0.05),
+             "fedsynth": dict(kind="fedsynth", syn_steps=2, syn_lr=0.1)}
 # the reference's fault scenario: a 4x4x1 -> 3 MLP, K = 1
 FAULT_N, FAULT_K = 8, 1
 FAULT_KNOBS = dict(participation_rate=0.7, drop_rate=0.2,
@@ -141,13 +145,14 @@ def strategy_for(model, spec, kind: str, **over):
     from repro_torch.configs.base import CompressorConfig
     from repro_torch.core.strategy import make_strategy
     from repro_torch.models.build import vision_syn_spec
-    comp = CompressorConfig(**{**KINDS[kind], **over})
+    comp = CompressorConfig(**{**ALL_KINDS[kind], **over})
     return comp, make_strategy(comp, loss_fn=model.syn_loss,
                                syn_spec=vision_syn_spec(spec, comp),
                                local_lr=0.05)
 
 
-def engine(world, kind: str, shardings=None, mesh=None, **run_kw):
+def engine(world, kind: str, shardings=None, mesh=None, donate=True,
+           **run_kw):
     """The reference's ``_world`` engine on the port: (engine, state,
     codec)."""
     from repro_torch.configs.base import FLConfig
@@ -170,7 +175,7 @@ def engine(world, kind: str, shardings=None, mesh=None, **run_kw):
     eng = RoundEngine(build_fl_round(model.loss, strat, run, codec=codec),
                       vision_batcher(train.x, train.y, pools, K, B,
                                      clients=clients),
-                      seed=0, shardings=shardings)
+                      seed=0, donate=donate, shardings=shardings)
     return eng, eng.init_state(params, N, strat,
                                staleness_max=run.staleness_max), codec
 
@@ -568,20 +573,23 @@ def _null_schedule(sh, mesh):
 
 def _ef_roundtrip(world, sh, mesh):
     """The mirror of the reference's EF placement through donation: the
-    engine's state keeps this rank's EF rows across blocks, the caller's
-    params and the state handed in are never written, and the gathered EF
-    is the single-process one."""
+    engine's state keeps this rank's EF rows, in the storage it was handed,
+    across blocks; the caller's params and the params handed in are never
+    written, and the gathered EF is the single-process one."""
     from repro_torch.fl.round import FLState
     e, s0, _ = engine(world, "fedavg", sh, mesh)
     local = len(sh.local_clients(N))
     params = world[1]
-    before = snapshot((params, s0.params, s0.ef))
+    before = snapshot((params, s0.params))
+    storages = [t.untyped_storage().data_ptr() for t in leaves(s0.ef)]
     s2, _ = e.run_block(s0, 2)
     assert all(v.shape[0] == local for v in leaves(s2.ef))
     s4, ms = e.run_block(s2, 2)
     assert np.isfinite(ms.loss).all() and s4.round == 4
-    assert_tree_bits(before, leaves((params, s0.params, s0.ef)),
-                     "the engine wrote a tensor it was handed")
+    assert [t.untyped_storage().data_ptr() for t in leaves(s4.ef)] \
+        == storages, "the EF left the donated rows"
+    assert_tree_bits(before, leaves((params, s0.params)),
+                     "the engine wrote params it was handed")
     e1, t0, _ = engine(world, "fedavg")
     t4, _ = e1.run_block(t0, 4)
     full = sh.gather_state(s4)
@@ -721,18 +729,34 @@ def scenario_reference(r: Rank):
 
 def _engine_under_mesh():
     """The mirror of the reference's donation-under-a-mesh check: with
-    shardings the engine runs, and never writes the caller's state."""
+    shardings, every kind's donating engine writes each round's EF into
+    this rank's own EF rows (the state handed in is consumed, its params
+    and the caller's stay as they were), and its rounds are bitwise the
+    undonated engine's."""
     from repro_torch.fl.sharding import make_fl_shardings
     from repro_torch.launch.mesh import make_host_mesh
     mesh = make_host_mesh(device="cpu")
     sh = make_fl_shardings(mesh)
     world = vision_world()
-    e, state, _ = engine(world, "fedavg", sh, mesh)
-    before = snapshot((world[1], state.params, state.ef))
-    s2, ms = e.run_block(state, 2)
-    assert np.isfinite(ms.loss).all() and s2.round == 2
-    assert_tree_bits(before, leaves((world[1], state.params, state.ef)),
-                     "the engine wrote a tensor it was handed")
+    local = len(sh.local_clients(N))
+    for kind in ALL_KINDS:
+        e, state, _ = engine(world, kind, sh, mesh)
+        before = snapshot((world[1], state.params))
+        storages = [t.untyped_storage().data_ptr()
+                    for t in leaves(state.ef)]
+        s2, ms = e.run_block(state, 2)
+        assert np.isfinite(ms.loss).all() and s2.round == 2, kind
+        assert all(v.shape[0] == local for v in leaves(s2.ef)), kind
+        assert [t.untyped_storage().data_ptr()
+                for t in leaves(s2.ef)] == storages, \
+            f"{kind}: the EF left the donated rows"
+        assert_tree_bits(before, leaves((world[1], state.params)),
+                         f"{kind}: the engine wrote params it was handed")
+        e1, t0, _ = engine(world, kind, sh, mesh, donate=False)
+        t2, mt = e1.run_block(t0, 2)
+        assert_tree_bits((s2.params, s2.ef), (t2.params, t2.ef),
+                         f"{kind}: donated vs undonated")
+        assert_metrics_bits(ms, mt, f"{kind}: donated vs undonated")
 
 
 def scenario_engine(r: Rank):

@@ -68,12 +68,15 @@ KINDS = {
     "stc": dict(kind="stc", keep_ratio=0.05),
     "threesfc": dict(kind="threesfc", syn_steps=2, syn_lr=0.1),
 }
+# every registered kind: the engine kinds and the two without a wire format
+ALL_KINDS = {**KINDS, "randk": dict(kind="randk", keep_ratio=0.05),
+             "fedsynth": dict(kind="fedsynth", syn_steps=2, syn_lr=0.1)}
 
 
-def _engine(seed=0, kind="fedavg"):
+def _engine(seed=0, kind="fedavg", donate=True):
     """``kind`` (FedAvg by default) on the tiny MLP: N=3 clients, K=2 steps
-    of batch 4."""
-    comp = CompressorConfig(**KINDS[kind])
+    of batch 4, the engine donating unless told not to."""
+    comp = CompressorConfig(**ALL_KINDS[kind])
     model = make_paper_model("mlp", SPEC)
     strat = make_strategy(comp, loss_fn=model.syn_loss,
                           syn_spec=vision_syn_spec(SPEC, comp),
@@ -85,7 +88,8 @@ def _engine(seed=0, kind="fedavg"):
     engine = RoundEngine(
         build_fl_round(model.loss, strat, RunConfig(
             fl=FLConfig(num_clients=N, local_steps=2, compressor=comp))),
-        vision_batcher(x, y, device_pools(parts, CPU), 2, 4), seed=seed)
+        vision_batcher(x, y, device_pools(parts, CPU), 2, 4), seed=seed,
+        donate=donate)
     params = model.init(torch.Generator().manual_seed(seed))
     return engine, engine.init_state(params, N, strat)
 
@@ -229,8 +233,72 @@ def test_batchers_draw_a_client_range():
 @pytest.mark.transport(timeout=300)
 def test_donation_safe_under_mesh(tmp_path):
     """Mirror of tests/test_engine.py's check under an installed mesh: on 2
-    gloo ranks with ``shardings``, the engine runs its rounds and never
-    writes the params or the state it was handed (the port's rounds
-    return fresh states; there is no donation)."""
+    gloo ranks with ``shardings``, for every registered kind, the donating
+    engine writes each round's EF into the rank's own EF rows in place,
+    never writes the params it was handed or the caller's, and its rounds
+    are bitwise the undonated engine's."""
     assert_check(run_ranks("engine", 2, tmp_path, timeout=240),
                  "donation_safe_under_mesh")
+
+
+def _storages(tree) -> list:
+    return [t.untyped_storage().data_ptr() for t in flat.tree_leaves(tree)]
+
+
+def test_every_kind_is_pinned():
+    """ALL_KINDS covers every kind the package registers (other test files
+    register toy kinds in the same process)."""
+    from repro_torch.core.strategy import STRATEGIES
+    builtin = sorted(k for k, cls in STRATEGIES.items()
+                     if cls.__module__ == "repro_torch.core.strategy")
+    assert sorted(c["kind"] for c in ALL_KINDS.values()) == builtin
+
+
+@pytest.mark.parametrize("kind", list(ALL_KINDS))
+def test_donated_block_bit_exact_vs_undonated_loop(kind):
+    """A donating engine's block of 3 rounds against an undonated engine's
+    3 rounds one at a time: bitwise the same params, EF and per-round
+    metrics, and the donated EF never leaves the storage init_state
+    gave it."""
+    eng, state = _engine(kind=kind)
+    assert eng.donate                    # the reference's default
+    storages = _storages(state.ef)
+    s_block, mb = eng.run_block(state, 3)
+    assert _storages(s_block.ef) == storages, f"{kind}: EF moved"
+    eng2, state2 = _engine(kind=kind, donate=False)
+    before = _bits(state2.ef)
+    s_loop, ml = eng2.run_loop(state2, 3)
+    assert _bits(state2.ef) == before, f"{kind}: undonated EF written"
+    assert _bits(s_block.params) == _bits(s_loop.params), f"{kind} params"
+    assert _bits(s_block.ef) == _bits(s_loop.ef), f"{kind} ef"
+    assert s_block.round == s_loop.round == 3
+    for f in ("loss", "cosine", "payload_floats", "update_norm"):
+        assert getattr(mb, f).tobytes() == getattr(ml, f).tobytes(), \
+            f"{kind} metric {f} not bit-exact"
+
+
+def test_donation_consumes_state_and_caller_params_survive():
+    """Mirror of tests/test_engine.py: the donated state is consumed (its
+    EF tensors are the returned state's, holding the new round's values,
+    and the engine refuses it), the caller's params — copied by
+    init_state — are never written, and the returned state keeps
+    working."""
+    comp = CompressorConfig(**KINDS["stc"])
+    model = make_paper_model("mlp", SPEC)
+    params = model.init(torch.Generator().manual_seed(0))
+    kept = _bits(params)
+    eng, state = _engine(kind="stc")
+    old_ef = flat.tree_leaves(state.ef)
+    state2, _ = eng.run_block(state, 2)
+    assert all(a is b for a, b in zip(old_ef, flat.tree_leaves(state2.ef)))
+    assert any(bool(t.abs().sum() > 0) for t in old_ef)   # EF is live
+    with pytest.raises(RuntimeError, match="donated"):
+        eng.run_block(state, 1)
+    assert _bits(params) == kept
+    state3, ms = eng.run_block(state2, 2)
+    assert np.isfinite(ms.loss).all() and state3.round == 4
+    # the caller's own tree is never the state's
+    eng_c, _ = _engine(kind="stc")
+    st = eng_c.init_state(params, N, make_strategy(comp))
+    eng_c.run_block(st, 1)
+    assert _bits(params) == kept

@@ -54,9 +54,10 @@ def test_shard_map_bitexact_vs_vmap_all_compressors(world, tmp_path_factory):
 @pytest.mark.transport(timeout=480)
 @pytest.mark.parametrize("world", WORLDS)
 def test_ef_sharding_roundtrip_through_donation(world, tmp_path_factory):
-    """The engine's state keeps each rank's EF rows across blocks, never
-    writes the tensors it was handed, and its gathered EF after 4 rounds
-    is the single-process one."""
+    """The engine's state keeps each rank's EF rows across blocks, in the
+    storage it was handed (donated), never writes the params it was
+    handed, and its gathered EF after 4 rounds is the single-process
+    one."""
     assert_check(_ranks(world, tmp_path_factory), "ef_roundtrip")
 
 
