@@ -225,12 +225,26 @@ Phases, in order; any failure exits non-zero:
              peak lower by at least 0.9 x the EF tree's 7,968,400 B, and
              every round bitwise the undonated one.
 
+21. dry run — ``repro_torch.launch.dryrun`` on fake CUDA tensors (the
+             kernels through their meta branches), phase 19's shapes
+             substituted into the entry builders: (a) tinyllama-1.1b's
+             train_4k entry at phase 19 (b)'s settings (a (4, 1) mesh in
+             vmap mode, 2 x 4,096 tokens a client, fused decode), its
+             predicted peak within 10% of (b)'s undonated round measured
+             in this run; (b) its prefill at phase 19 (a)'s batch 4 x
+             2,048, the predicted peak within 10% of (a)'s, and the
+             compute and memory bounds each at most (a)'s measured device
+             time (their share of it printed); (c) no dry run moves the
+             card's allocated bytes or their peak, or counts a launch; (d)
+             prefill_32k of every architecture at its published widths on
+             (1, 1), nothing cut: its peak and dominant term.
+
 Phase 7 adds the full-width mamba2 round's profile and B1, B2 (with
 ``torch.addcmul`` beside), B3a and B3b at mamba2's d, the wall time of
 a main-path round under phase 17 (a) beside the single-process round, in
 turns, and phase 19's tinyllama prefill and round profiles (taken there,
 while their models were on the card). The phases run in the order 1-6,
-8-20, 7, so that the times can report each kernel's launches on its
+8-21, 7, so that the times can report each kernel's launches on its
 path. The last lines are the run's
 wall time from the script's start, the card's name and power limit, one
 JSON object with every kernel's numbers, the list of kernels, and
@@ -270,7 +284,8 @@ from repro_torch.comm import Codec, frame  # noqa: E402
 from repro_torch.comm.transport import (SocketServer,  # noqa: E402
                                         spawn_local_workers)
 from repro_torch.configs.base import (ARCH_IDS, CompressorConfig,  # noqa: E402
-                                     FLConfig, get_config, get_smoke_config)
+                                     FLConfig, ShapeConfig, get_config,
+                                     get_smoke_config)
 from repro_torch.configs.run import RunConfig  # noqa: E402
 from repro_torch.core import baselines, flat  # noqa: E402
 from repro_torch.core import error_feedback as ef  # noqa: E402
@@ -299,8 +314,10 @@ from repro_torch.kernels import sign_quant as sq_mod  # noqa: E402
 from repro_torch.kernels import ssd_chunk as ssd_mod  # noqa: E402
 from repro_torch.kernels import topk_mask as tm_mod  # noqa: E402
 from repro_torch.kernels.ftz import FLT_MIN, flush_subnormal  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import ranks as ranks_mod  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.launch import specs as specs_mod  # noqa: E402
 from repro_torch.launch.worker import (launch_counts,  # noqa: E402
                                        vision_setup)
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
@@ -314,12 +331,13 @@ from repro_torch.models.encdec import EncDec  # noqa: E402
 from repro_torch.models.transformer import LM  # noqa: E402
 from repro_torch.profiling import (call_ms, graph_ms,  # noqa: E402
                                   round_profile)
+from repro_torch.utils import roofline  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 non-tensor FLOP/s
-# and dense TF32 tensor-core FLOP/s
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
-TF32_FLOP_PER_S = 495e12
+# H100 SXM peaks: HBM bytes/s, f32 non-tensor FLOP/s and dense TF32
+# tensor-core FLOP/s, the port's one copy of the datasheet's figures
+HBM_BYTES_PER_S = roofline.HBM_BW
+F32_FLOP_PER_S = roofline.F32_FLOPS
+TF32_FLOP_PER_S = roofline.TF32_FLOPS
 
 N, K, B, S = 10, 5, 32, 10
 ROUNDS = 3
@@ -463,6 +481,14 @@ SMOKE_T, SMOKE_DECODE = 16, 4
 LM_TIME_REPS, LM_TIME_REPLAYS = 10, 11
 # phase 20: rounds of the donated and the undonated engine, in turns
 DONATION_ROUNDS = 2
+# phase 21: the dry runs of phase 19's two programs, substituted into the
+# entry builders' shapes: (a) its round (N = 4 clients on a (4, 1) mesh,
+# 2 sequences of 4,096 tokens each) and (b) its prefill; each predicted
+# peak within DRY_PEAK_RTOL of the peak that phase measured
+DRY_TRAIN_SHAPE = ShapeConfig("train_4k", LM_SEQ, LM_N * LM_BATCH, "train")
+DRY_SERVE_SHAPE = ShapeConfig("prefill_32k", SERVE_PROMPT, SERVE_BATCH,
+                              "prefill")
+DRY_PEAK_RTOL = 0.10
 # vectors of 4 Mi + 5 elements the B5/B6 timing rotates over: 6 x 16.8 MB
 # of inputs, twice the H100's 50 MB L2
 L2_ROTATE = 6
@@ -3486,12 +3512,16 @@ def phase_tl_serve() -> dict:
           f"{res.decode_s / steps * 1e3:.3f} ms per step, "
           f"{SERVE_BATCH * steps / res.decode_s:.1f} tok/s; peak device "
           f"memory {peak:.2f} GiB; launches {launched}")
+    torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
         prof = round_profile(lambda: res.model.prefill(
             res.params, res.prompt, SERVE_PROMPT + SERVE_GEN))
+    prefill_peak = peak_gib()
     print_profile(f"{TL_ARCH} warm prefill (batch {SERVE_BATCH}, prompt "
                   f"{SERVE_PROMPT})", prof)
-    return {**prof, "peak_gib": peak,
+    print(f"  the warm prefills (params, prompt and the serve run's "
+          f"results on the card): peak device memory {prefill_peak:.2f} GiB")
+    return {**prof, "peak_gib": peak, "prefill_peak_gib": prefill_peak,
             "decode_ms_per_step": res.decode_s / steps * 1e3,
             "cold_prefill_ms": res.prefill_s * 1e3}
 
@@ -4058,6 +4088,142 @@ def phase_contracts(dev) -> dict:
             "donation": donation, "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the dry run against the card
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def input_shapes(**shapes):
+    """The entry builders' ``INPUT_SHAPES`` with ``shapes`` substituted
+    while open, as the reference's tests substitute them
+    (tests/test_variant_lowering.py)."""
+    saved = specs_mod.INPUT_SHAPES, dryrun.INPUT_SHAPES
+    table = {**specs_mod.INPUT_SHAPES, **shapes}
+    specs_mod.INPUT_SHAPES = dryrun.INPUT_SHAPES = table
+    try:
+        yield
+    finally:
+        specs_mod.INPUT_SHAPES, dryrun.INPUT_SHAPES = saved
+
+
+def dry_run(arch: str, shape: str, mesh_shape, variant=None) -> dict:
+    """One dry run of the card's path: (c) the card's allocated bytes the
+    same after it as before, and no kernel launch counted. The peak's
+    rise during it is kept (``card_peak_rise``): ``torch.tensor`` of host
+    data makes a real tensor, a few bytes, before the fake mode wraps it
+    as a constant."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = dryrun.run_pair(arch, shape, mesh_shape=mesh_shape,
+                          variant=variant, device="cuda", save=False,
+                          verbose=False)
+    torch.cuda.synchronize()
+    after, top, launched = (torch.cuda.memory_allocated(),
+                            torch.cuda.max_memory_allocated(), counts())
+    if after != before or launched != only():
+        raise AssertionError(
+            f"dry run of {arch} x {shape}: allocated {before} -> {after} B "
+            f"(peak {top} B), launches {launched}")
+    return {**res, "card_peak_rise": top - before}
+
+
+def check_peak(label: str, predicted: int, measured_gib: float) -> float:
+    """The predicted peak over the measured one, within DRY_PEAK_RTOL."""
+    ratio = predicted / 2**30 / measured_gib
+    print(f"  {label}: predicted peak {predicted / 2**30:.2f} GiB, measured "
+          f"{measured_gib:.2f} GiB: {ratio:.4f}")
+    if abs(ratio - 1.0) > DRY_PEAK_RTOL:
+        raise AssertionError(f"{label}: predicted peak off the measured one "
+                             f"by more than {DRY_PEAK_RTOL:.0%}")
+    return ratio
+
+
+def print_dry(res: dict) -> None:
+    roof, mem = res["roofline"], res["memory_per_dev"]
+    print(f"    {res['arch']} x {res['shape']} [{res['mesh']}]: traced in "
+          f"{res['trace_s']} s ({res['ops_dispatched']} ops); args "
+          f"{mem['argument_bytes'] / 2**30:.2f} GiB, peak "
+          f"{mem['peak_bytes'] / 2**30:.2f} GiB; {roof['flops_per_dev']:.4e} "
+          f"FLOPs {roof['flops_per_dev_by_class']}, "
+          f"{roof['hbm_bytes_per_dev']:.4e} B; compute "
+          f"{roof['compute_s'] * 1e3:.3f} ms, memory "
+          f"{roof['memory_s'] * 1e3:.3f} ms, dominant {roof['dominant']}, "
+          f"useful {roof['useful_ratio']:.4f}")
+
+
+def phase_dry_runs(families: dict) -> dict:
+    """Phase 21: (a) phase 19 (b)'s round and (b) phase 19 (a)'s prefill
+    dry-run on fake CUDA tensors (the kernels through their meta
+    branches), each predicted peak against the measured one, (b)'s bounds
+    against its measured device time; (c) nothing allocated and nothing
+    launched by any dry run; (d) every architecture's prefill_32k at its
+    published widths on (1, 1), nothing cut."""
+    phase("dry run: repro_torch.launch.dryrun on fake tensors, against "
+          "phase 19's measurements")
+    t0 = time.perf_counter()
+    trained, served = families["train"], families["serve"]
+    with input_shapes(train_4k=DRY_TRAIN_SHAPE):
+        train_res = dry_run(TL_ARCH, "train_4k", (LM_N, 1),
+                            {"fused_decode": True})
+    print_dry(train_res)
+    train_ratio = check_peak(
+        f"(a) {TL_ARCH} round (N={LM_N}, B={LM_BATCH}, S={LM_SEQ}, fused "
+        f"decode) against phase 19 (b)'s undonated round",
+        train_res["memory_per_dev"]["peak_bytes"], trained["round_peak_gib"])
+    with input_shapes(prefill_32k=DRY_SERVE_SHAPE):
+        serve_res = dry_run(TL_ARCH, "prefill_32k", (1, 1))
+    print_dry(serve_res)
+    serve_ratio = check_peak(
+        f"(b) {TL_ARCH} prefill (batch {SERVE_BATCH}, prompt "
+        f"{SERVE_PROMPT}) against phase 19 (a)'s serve run",
+        serve_res["memory_per_dev"]["peak_bytes"], served["peak_gib"])
+    device_ms = served["round_device_ms"]
+    if not device_ms:
+        raise AssertionError("phase 19 (a) measured no device time")
+    roof = serve_res["roofline"]
+    compute_ms, memory_ms = roof["compute_s"] * 1e3, roof["memory_s"] * 1e3
+    print(f"  (b) bounds against the warm prefill's {device_ms:.3f} ms of "
+          f"device time: compute {compute_ms:.3f} ms "
+          f"({compute_ms / device_ms:.4f}), memory {memory_ms:.3f} ms "
+          f"({memory_ms / device_ms:.4f} of it: the byte-roofline share)")
+    if compute_ms > device_ms or memory_ms > device_ms:
+        raise AssertionError("a bound above the measured device time: the "
+                             "dry run miscounts")
+    widths = {}
+    for arch in ARCH_IDS:
+        res = dry_run(arch, "prefill_32k", (1, 1))
+        print_dry(res)
+        widths[arch] = {"peak_gib": res["memory_per_dev"]["peak_bytes"]
+                        / 2**30, "dominant": res["roofline"]["dominant"],
+                        "compute_s": res["roofline"]["compute_s"],
+                        "memory_s": res["roofline"]["memory_s"],
+                        "trace_s": res["trace_s"]}
+    print(f"  (d) prefill_32k at the published widths of all "
+          f"{len(widths)} architectures dry-run")
+    rise = max(r["card_peak_rise"] for r in (train_res, serve_res))
+    print(f"  (c) no dry run left bytes allocated on the card or launched a "
+          f"kernel; the card's peak rose by at most {rise} B in (a) and (b) "
+          f"(host constants made real before the fake mode wraps them)")
+    wall = time.perf_counter() - t0
+    print(f"  phase 21 wall {wall:.1f} s")
+    return {"train": {"peak_gib": train_res["memory_per_dev"]["peak_bytes"]
+                      / 2**30, "ratio": train_ratio,
+                      "trace_s": train_res["trace_s"],
+                      "ops": train_res["ops_dispatched"],
+                      "roofline": train_res["roofline"]},
+            "serve": {"peak_gib": serve_res["memory_per_dev"]["peak_bytes"]
+                      / 2**30, "ratio": serve_ratio,
+                      "device_ms": device_ms, "compute_ms": compute_ms,
+                      "memory_ms": memory_ms,
+                      "memory_share": memory_ms / device_ms,
+                      "roofline": roof},
+            "prefill_32k": widths, "card_peak_rise_bytes": rise,
+            "wall_s": wall}
+
+
 def main() -> int:
     phase("device")
     if not torch.cuda.is_available():
@@ -4110,6 +4276,7 @@ def main() -> int:
         families = phase_lm_families(out_dir, dev)
     free_card()
     static = phase_contracts(dev)
+    dry = phase_dry_runs(families)
     lm_state = state_to(lm_state, dev)
     lm_cfg = get_config("mamba2-370m")
     lm_model, lm_strategy, lm_run = train.lm_setup(
@@ -4156,6 +4323,7 @@ def main() -> int:
     print(json.dumps({"host_layers": host_layers}))
     print(json.dumps({"lm_families": families}))
     print(json.dumps({"static_contracts": static}))
+    print(json.dumps({"dry_runs": dry}))
 
     print(f"chip_smoke wall {time.perf_counter() - _T0:.1f} s (from the "
           f"script's start, the kernels' build included)")

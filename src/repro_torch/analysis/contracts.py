@@ -9,7 +9,10 @@ builds one per configuration): while the round runs, ``RoundRecorder``
 * wraps every collective entry point of ``torch.distributed`` (in
   ``torch.distributed`` and ``torch.distributed.distributed_c10d``) and
   records each call's kind, the bytes this rank puts into it, their dtypes
-  and whether the call fell inside a client's step;
+  and whether the call fell inside a client's step, through
+  ``repro_torch.utils.hlo_analyzer.collective_hook``: the op-trace cost
+  analyzer sees collectives through the same hook, so the two accountings
+  cannot drift;
 * records the row layout ``repro_torch.fl.sharding.all_gather_rows``
   packs: each gathered client row's fields, as (dtype, bytes) per leaf;
 * counts, inside the client scope, the calls that pull a tensor's value to
@@ -43,21 +46,19 @@ The five contracts (constants copied from the reference):
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import inspect
-import pickle
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
-import torch.distributed as dist
-import torch.distributed.distributed_c10d as c10d
 from torch.overrides import TorchFunctionMode
 
 from repro_torch.comm.frame import HEADER_BYTES, POLICY_IDS
 from repro_torch.core.tree import tree_leaves
 from repro_torch.fl import round as round_lib
 from repro_torch.fl.round import CLIENT_SCOPE
+from repro_torch.utils.hlo_analyzer import collective_hook
 
 # fused-decode gather bound: total gathered bytes per rank must stay within
 # FACTOR x the local clients' payload bytes plus SLACK for the per-client
@@ -72,39 +73,6 @@ WIRE_METADATA_SLACK_BYTES = 1024.0
 # host reads a strategy's client step needs, by kind: each entry names its
 # file:line and reason. No built-in strategy needs one.
 EXPECTED_HOST_SYNCS: Dict[str, int] = {}
-
-# the collective entry points and the parameter holding what this rank
-# sends (None: it sends no payload); object variants are pickled to count
-COLLECTIVES: Dict[str, Optional[str]] = {
-    "all_gather": "tensor",
-    "all_gather_into_tensor": "input_tensor",
-    "_all_gather_base": "input_tensor",
-    "all_gather_coalesced": "input_tensor_list",
-    "all_gather_object": "obj",
-    "all_reduce": "tensor",
-    "all_reduce_coalesced": "tensors",
-    "reduce": "tensor",
-    "broadcast": "tensor",
-    "broadcast_object_list": "object_list",
-    "reduce_scatter": "input_list",
-    "reduce_scatter_tensor": "input",
-    "_reduce_scatter_base": "input",
-    "all_to_all": "input_tensor_list",
-    "all_to_all_single": "input",
-    "scatter": "scatter_list",
-    "scatter_object_list": "scatter_object_input_list",
-    "gather": "tensor",
-    "gather_object": "obj",
-    "send": "tensor",
-    "recv": "tensor",
-    "isend": "tensor",
-    "irecv": "tensor",
-    "send_object_list": "object_list",
-    "recv_object_list": "object_list",
-    "batch_isend_irecv": "p2p_op_list",
-    "barrier": None,
-    "monitored_barrier": None,
-}
 
 # Tensor methods that pull a value to the host (a device sync on the card)
 HOST_READS = ("item", "tolist", "numpy", "__array__", "__bool__",
@@ -183,24 +151,6 @@ def ef_storages(ef) -> List[int]:
 # ---------------------------------------------------------------------------
 
 
-def _payload(value) -> Tuple[int, List[str]]:
-    """(bytes, dtypes) of what a collective argument carries."""
-    if isinstance(value, torch.Tensor):
-        return value.numel() * value.element_size(), [str(value.dtype)]
-    if isinstance(value, (list, tuple)):
-        total, dts = 0, []
-        for v in value:
-            b, d = _payload(v)
-            total += b
-            dts += [x for x in d if x not in dts]
-        return total, dts
-    if isinstance(value, dist.P2POp):
-        return _payload(value.tensor)
-    if value is None:
-        return 0, []
-    return len(pickle.dumps(value)), ["object"]
-
-
 def _target_is_cpu(args, kwargs) -> bool:
     """Whether a ``Tensor.to`` call names the CPU as its device."""
     for a in list(args[1:]) + [kwargs.get("device")]:
@@ -238,45 +188,16 @@ class RoundRecorder:
         self.collectives: List[Collective] = []
         self.rows: List[List[List[Tuple[str, int]]]] = []
         self.host_syncs: Dict[str, int] = {}
-        self._undo: List[Callable[[], None]] = []
-        self._inside = 0
+        self._stack = contextlib.ExitStack()
 
-    def _wrap_collective(self, kind: str, fn: Callable) -> Callable:
-        param = COLLECTIVES[kind]
-        try:
-            sig = inspect.signature(fn)
-        except (TypeError, ValueError):
-            sig = None
-        rec = self
-
-        def wrapper(*args, **kwargs):
-            # an object variant calls the tensor ones: record the outermost
-            if rec._inside:
-                return fn(*args, **kwargs)
-            value = None
-            if param is not None and sig is not None:
-                try:
-                    value = sig.bind_partial(*args, **kwargs).arguments.get(
-                        param)
-                except TypeError:
-                    value = None
-                if value is None and param not in sig.parameters:
-                    value = list(args) + list(kwargs.values())
-            nbytes, dtypes = _payload(value)
-            rec.collectives.append(Collective(
-                kind, int(nbytes), dtypes, round_lib.in_client_scope()))
-            rec._inside += 1
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                rec._inside -= 1
-
-        return wrapper
-
-    def _patch(self, owner, name: str, new) -> None:
-        old = getattr(owner, name)
-        setattr(owner, name, new)
-        self._undo.append(lambda: setattr(owner, name, old))
+    def _on_collective(self, kind: str, operands) -> None:
+        dtypes: List[str] = []
+        for dt, _ in operands:
+            if dt not in dtypes:
+                dtypes.append(dt)
+        self.collectives.append(Collective(
+            kind, int(sum(b for _, b in operands)), dtypes,
+            round_lib.in_client_scope()))
 
     def _wrap_rows(self, fn: Callable) -> Callable:
         rec = self
@@ -294,31 +215,19 @@ class RoundRecorder:
         # the gather's module (DTensor's import) is loaded here, not at
         # this module's import
         from repro_torch.fl import sharding
-        patched = False
-        try:
-            for kind in COLLECTIVES:
-                for owner in (dist, c10d):
-                    fn = getattr(owner, kind, None)
-                    if fn is not None:
-                        self._patch(owner, kind,
-                                    self._wrap_collective(kind, fn))
-            self._patch(sharding, "all_gather_rows",
-                        self._wrap_rows(sharding.all_gather_rows))
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(collective_hook(self._on_collective))
+            gather = sharding.all_gather_rows
+            sharding.all_gather_rows = self._wrap_rows(gather)
+            stack.callback(setattr, sharding, "all_gather_rows", gather)
             hook = lambda: _HostReads(self.host_syncs)
             round_lib.SCOPE_HOOKS.append(hook)
-            self._undo.append(lambda: round_lib.SCOPE_HOOKS.remove(hook))
-            patched = True
-        finally:
-            if not patched:
-                self._restore()
+            stack.callback(round_lib.SCOPE_HOOKS.remove, hook)
+            self._stack = stack.pop_all()
         return self
 
-    def _restore(self) -> None:
-        while self._undo:
-            self._undo.pop()()
-
     def __exit__(self, *exc) -> None:
-        self._restore()
+        self._stack.close()
 
 
 # ---------------------------------------------------------------------------

@@ -3,6 +3,11 @@
 Trees are nested dicts, lists, tuples and NamedTuples; anything else is a
 leaf. Dict keys are walked in sorted order, as JAX does, so leaves line up
 with the reference's, and ``None`` is an empty subtree.
+
+The walks recurse through module functions, never through a nested
+function that calls itself: such a function holds itself in its closure,
+a reference cycle that would keep the leaves it saw alive until the
+garbage collector runs.
 """
 from __future__ import annotations
 
@@ -15,43 +20,43 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
+def _flatten(node, leaves: list) -> tuple:
+    if node is None:
+        return ("none",)
+    if isinstance(node, dict):
+        keys = tuple(sorted(node))
+        return ("dict", keys, tuple(_flatten(node[k], leaves) for k in keys))
+    if _is_namedtuple(node):
+        return ("namedtuple", type(node),
+                tuple(_flatten(c, leaves) for c in node))
+    if isinstance(node, (list, tuple)):
+        return (type(node).__name__, tuple(_flatten(c, leaves) for c in node))
+    leaves.append(node)
+    return ("leaf",)
+
+
 def tree_flatten(tree: PyTree) -> Tuple[list, tuple]:
     """(leaves, treedef); treedefs compare equal iff structures match."""
     leaves: list = []
+    return leaves, _flatten(tree, leaves)
 
-    def walk(node):
-        if node is None:
-            return ("none",)
-        if isinstance(node, dict):
-            keys = tuple(sorted(node))
-            return ("dict", keys, tuple(walk(node[k]) for k in keys))
-        if _is_namedtuple(node):
-            return ("namedtuple", type(node), tuple(walk(c) for c in node))
-        if isinstance(node, (list, tuple)):
-            return (type(node).__name__, tuple(walk(c) for c in node))
-        leaves.append(node)
-        return ("leaf",)
 
-    return leaves, walk(tree)
+def _unflatten(d: tuple, it) -> PyTree:
+    kind = d[0]
+    if kind == "leaf":
+        return next(it)
+    if kind == "none":
+        return None
+    if kind == "dict":
+        return {k: _unflatten(c, it) for k, c in zip(d[1], d[2])}
+    if kind == "namedtuple":
+        return d[1](*[_unflatten(c, it) for c in d[2]])
+    children = [_unflatten(c, it) for c in d[1]]
+    return children if kind == "list" else tuple(children)
 
 
 def tree_unflatten(treedef: tuple, leaves) -> PyTree:
-    it = iter(leaves)
-
-    def build(d):
-        kind = d[0]
-        if kind == "leaf":
-            return next(it)
-        if kind == "none":
-            return None
-        if kind == "dict":
-            return {k: build(c) for k, c in zip(d[1], d[2])}
-        if kind == "namedtuple":
-            return d[1](*[build(c) for c in d[2]])
-        children = [build(c) for c in d[1]]
-        return children if kind == "list" else tuple(children)
-
-    return build(treedef)
+    return _unflatten(treedef, iter(leaves))
 
 
 def tree_leaves_with_path(tree: PyTree) -> list:
@@ -59,24 +64,24 @@ def tree_leaves_with_path(tree: PyTree) -> list:
     dict keys, NamedTuple field names and sequence indices from the root
     (``jax.tree_util``'s ``DictKey``/``GetAttrKey``/``SequenceKey``)."""
     out: list = []
-
-    def walk(node, path):
-        if node is None:
-            return
-        if isinstance(node, dict):
-            for k in sorted(node):
-                walk(node[k], path + (k,))
-        elif _is_namedtuple(node):
-            for name, c in zip(node._fields, node):
-                walk(c, path + (name,))
-        elif isinstance(node, (list, tuple)):
-            for i, c in enumerate(node):
-                walk(c, path + (i,))
-        else:
-            out.append((path, node))
-
-    walk(tree, ())
+    _with_path(tree, (), out)
     return out
+
+
+def _with_path(node, path: tuple, out: list) -> None:
+    if node is None:
+        return
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _with_path(node[k], path + (k,), out)
+    elif _is_namedtuple(node):
+        for name, c in zip(node._fields, node):
+            _with_path(c, path + (name,), out)
+    elif isinstance(node, (list, tuple)):
+        for i, c in enumerate(node):
+            _with_path(c, path + (i,), out)
+    else:
+        out.append((path, node))
 
 
 def tree_leaves(tree: PyTree) -> list:

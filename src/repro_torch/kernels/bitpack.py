@@ -23,7 +23,8 @@ The entries: ``pack_signs(x)`` and ``unpack_signs(words, n)`` (one flat
 vector), ``pack_signs_tree(leaves, out)`` and ``unpack_signs_frames(frames,
 offset, n)``. Each runs the plain PyTorch version for tensors on the CPU
 and launches the kernel for tensors on a CUDA device; there is no fallback
-from one to the other. ``LAUNCHES`` counts kernel launches, one dict entry
+from one to the other, and fake CUDA tensors take the meta branch
+(``kernels/meta.py``). ``LAUNCHES`` counts kernel launches, one dict entry
 per kernel, whichever entry launched it.
 """
 from __future__ import annotations
@@ -33,7 +34,7 @@ from typing import List, Sequence, Union
 
 import torch
 
-from repro_torch.kernels import _build, pack_table
+from repro_torch.kernels import _build, meta, pack_table
 from repro_torch.kernels.ftz import flush_subnormal
 
 # kernel launches since import (or since a caller reset them to 0)
@@ -150,6 +151,16 @@ def _pack(leaves: List[torch.Tensor], out: torch.Tensor, nbytes: int) -> None:
     plan = pack_table.pack_plan(sizes)
     if not plan:                         # every leaf is empty
         return
+    if meta.is_fake(out):
+        for step in plan:
+            first = 4 * step.first_word
+            last = min(nbytes, 4 * (step.first_word + step.words))
+            meta.launched(
+                "pack_signs",
+                [leaves[leaf].reshape(-1).narrow(0, start, n)
+                 for leaf, start, _, n in step.segments],
+                [out.narrow(0, first, last - first)])
+        return
     lib = _lib()
     device = out.device
     end = sum(sizes)
@@ -168,26 +179,34 @@ def _pack(leaves: List[torch.Tensor], out: torch.Tensor, nbytes: int) -> None:
         LAUNCHES["pack_signs"] += 1
 
 
-def _unpack(sections: List[int], nbytes: int, n: int,
+def _unpack(sections: List[torch.Tensor], n: int,
             device: torch.device) -> torch.Tensor:
-    """B3b over the sign sections at ``sections`` (device addresses of
-    ``nbytes`` bytes each) -> (N, n) f32, one launch per ``MAX_FRAMES``
-    rows. The rows lie ``stride`` (n rounded up to 4) elements apart, so
-    each starts on a 16-byte boundary; the caller gets the (N, n) view."""
+    """B3b over the sign ``sections`` (uint8 views of one length, read in
+    place) -> (N, n) f32, one launch per ``MAX_FRAMES`` rows. The rows lie
+    ``stride`` (n rounded up to 4) elements apart, so each starts on a
+    16-byte boundary; the caller gets the (N, n) view."""
     stride = -(-n // 4) * 4
     buf = torch.empty((len(sections), stride), dtype=torch.float32,
                       device=device)
+    out = buf.narrow(1, 0, n)
+    if meta.is_fake(buf):
+        for r0 in range(0, len(sections), MAX_FRAMES):
+            rows = sections[r0:r0 + MAX_FRAMES]
+            meta.launched("unpack_signs", rows,
+                          [out.narrow(0, r0, len(rows))])
+        return out
+    nbytes = sections[0].numel()
     lib = _lib()
     for r0 in range(0, len(sections), MAX_FRAMES):
         rows = sections[r0:r0 + MAX_FRAMES]
-        secs = (ctypes.c_int64 * len(rows))(*rows)
+        secs = (ctypes.c_int64 * len(rows))(*[s.data_ptr() for s in rows])
         rc = lib.unpack_signs_launch(secs, len(rows), buf[r0].data_ptr(),
                                      stride, n, nbytes, device.index,
                                      _stream(device))
         if rc != 0:
             raise RuntimeError(f"unpack_signs launch failed: cudaError {rc}")
         LAUNCHES["unpack_signs"] += 1
-    return buf[:, :n]
+    return out
 
 
 def pack_signs(x: torch.Tensor) -> torch.Tensor:
@@ -250,7 +269,7 @@ def unpack_signs(words: torch.Tensor, n: int) -> torch.Tensor:
         return unpack_signs_plain(words, n)
     if n == 0:
         return torch.empty(0, dtype=torch.float32, device=words.device)
-    return _unpack([words.data_ptr()], 4 * words.numel(), n, words.device)[0]
+    return _unpack([words.view(torch.uint8)], n, words.device).select(0, 0)
 
 
 def unpack_signs_frames(frames: Union[torch.Tensor, Sequence[torch.Tensor]],
@@ -283,5 +302,5 @@ def unpack_signs_frames(frames: Union[torch.Tensor, Sequence[torch.Tensor]],
     if n == 0:
         return torch.empty((len(rows), 0), dtype=torch.float32,
                            device=device)
-    return _unpack([f.data_ptr() + offset for f in rows], num_bytes(n), n,
+    return _unpack([f.narrow(0, offset, num_bytes(n)) for f in rows], n,
                    device)

@@ -12,8 +12,8 @@ bitwise the flat kernel's on the concatenated operands.
 ``ef_update(u, d, s)`` (one vector, the one-segment table) and
 ``ef_update_leaves(us, ds, s)`` run the plain PyTorch version for tensors
 on the CPU and launch the kernel for tensors on a CUDA device; there is no
-fallback from one to the other. ``LAUNCHES`` counts kernel launches, one
-per table.
+fallback from one to the other; fake CUDA tensors take the meta branch
+(``kernels/meta.py``). ``LAUNCHES`` counts kernel launches, one per table.
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ from typing import List, Sequence
 
 import torch
 
-from repro_torch.kernels import _build, leaf_table
+from repro_torch.kernels import _build, leaf_table, meta
 
 # kernel launches since import (or since a caller reset it to 0)
 LAUNCHES = 0
@@ -88,10 +88,17 @@ def _launch(us: List[torch.Tensor], ds: List[torch.Tensor], s: torch.Tensor
     sizes = [u.numel() for u in us]
     padded = [-(-n // 4) * 4 for n in sizes]
     buf = torch.empty(sum(padded), dtype=torch.float32, device=device)
-    outs = [o if p == n else o[:n] for o, p, n in
+    outs = [o if p == n else o.narrow(0, 0, n) for o, p, n in
             zip(buf.split_with_sizes(padded), padded, sizes)]
     plan = leaf_table.segment_plan(sizes)
     if not plan:                     # every leaf is empty
+        return outs
+    if meta.is_fake(buf):
+        for step in plan:
+            leaves = [leaf for leaf, _, _ in step.segments]
+            meta.launched("ef_update", [us[l] for l in leaves]
+                          + [ds[l] for l in leaves] + [s],
+                          [outs[l] for l in leaves])
         return outs
     lib = _lib()
     s = s.reshape(1).contiguous()

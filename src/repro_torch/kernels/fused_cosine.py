@@ -11,8 +11,9 @@ bytes it reads.
 ``fused_cosine(x, y)`` (one vector pair, the one-segment table) and
 ``fused_cosine_leaves(xs, ys)`` run the plain PyTorch version for tensors
 on the CPU and launch the kernel for tensors on a CUDA device; there is no
-fallback from one to the other. ``LAUNCHES`` counts kernel launches, one
-per table. Each stream gets its scratch at its first call, which must not
+fallback from one to the other; fake CUDA tensors take the meta branch
+(``kernels/meta.py``). ``LAUNCHES`` counts kernel launches, one per table.
+Each stream gets its scratch at its first call, which must not
 be inside a CUDA graph capture (it raises); later calls on that stream may
 be captured and replayed.
 """
@@ -23,7 +24,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels import _build, leaf_table
+from repro_torch.kernels import _build, leaf_table, meta
 
 # kernel launches since import (or since a caller reset it to 0)
 LAUNCHES = 0
@@ -126,10 +127,16 @@ def _launch(xs: List[torch.Tensor], ys: List[torch.Tensor]) -> torch.Tensor:
     plan = leaf_table.segment_plan([x.numel() for x in xs])
     if not plan:                     # every leaf is empty
         return torch.zeros(3, dtype=torch.float32, device=device)
+    out = torch.empty(3, dtype=torch.float32, device=device)
+    if meta.is_fake(out):
+        for step in plan:
+            leaves = [leaf for leaf, _, _ in step.segments]
+            meta.launched("fused_cosine", [xs[l] for l in leaves]
+                          + [ys[l] for l in leaves], [out])
+        return out
     lib = _lib()
     stream = torch._C._cuda_getCurrentRawStream(device.index)
     partials, ticket = _scratch(device, stream)
-    out = torch.empty(3, dtype=torch.float32, device=device)
     for j, step in enumerate(plan):
         desc = (ctypes.c_int64 * (5 * len(step.segments)))()
         for k, (leaf, first, blocks) in enumerate(step.segments):

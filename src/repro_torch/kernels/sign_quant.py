@@ -17,8 +17,9 @@ the kernel's scalar loads.
 
 ``sign_quant(x)`` runs the plain PyTorch version for a tensor on the CPU
 and launches the kernel for a tensor on a CUDA device; there is no
-fallback from one to the other. ``LAUNCHES`` counts kernel launches. Each
-stream gets its scratch at its first call, which must not be inside a
+fallback from one to the other; a fake CUDA tensor takes the meta branch
+(``kernels/meta.py``). ``LAUNCHES`` counts kernel launches. Each stream
+gets its scratch at its first call, which must not be inside a
 CUDA graph capture (it raises); later calls on that stream may be
 captured and replayed.
 """
@@ -29,7 +30,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build, one_wave
+from repro_torch.kernels import _build, meta, one_wave
 from repro_torch.kernels.ftz import flush_subnormal
 
 # kernel launches since import (or since a caller reset it to 0)
@@ -105,11 +106,14 @@ def sign_quant(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if n == 0:
         return (torch.empty(0, dtype=torch.int8, device=device),
                 torch.full((), float("nan"), device=device))
+    signs = torch.empty(n, dtype=torch.int8, device=device)
+    scale = torch.empty((), dtype=torch.float32, device=device)
+    if meta.is_fake(x):
+        meta.launched("sign_quant", [x], [signs, scale])
+        return signs, scale
     stream = torch._C._cuda_getCurrentRawStream(device.index)
     words = _SCRATCH.get(device, stream)
     wave = words.numel() - 1
-    signs = torch.empty(n, dtype=torch.int8, device=device)
-    scale = torch.empty((), dtype=torch.float32, device=device)
     slots = words.data_ptr()
     rc = _lib().sign_quant_launch(
         x.data_ptr(), signs.data_ptr(), slots, slots + 8 * wave,

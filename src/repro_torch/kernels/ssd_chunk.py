@@ -17,7 +17,8 @@ and each head's xdt staged with ``cp.async`` (see the source's note).
 ``ssd_chunk(xdt, dA, B, C)`` runs the plain PyTorch version for tensors on
 the CPU and launches the kernel for tensors on a CUDA device; there is no
 fallback from one to the other, and sizes or operands off a 16-byte
-boundary, which the kernel does not take, raise.
+boundary, which the kernel does not take, raise. Fake CUDA tensors take
+the meta branch (``kernels/meta.py``), after the sizes' check.
 ``LAUNCHES`` counts kernel launches.
 """
 from __future__ import annotations
@@ -27,7 +28,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, meta
 
 # kernel launches since import (or since a caller reset it to 0)
 LAUNCHES = 0
@@ -133,12 +134,17 @@ def ssd_chunk(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
     if xdt.device.type != "cuda":
         raise ValueError(f"ssd_chunk runs on cpu or cuda, not {xdt.device}")
     check_kernel_dims(Q, P, N)
-    check_kernel_alignment(xdt, B, C)
+    fake = meta.is_fake(xdt)
+    if not fake:
+        check_kernel_alignment(xdt, B, C)
     dev = xdt.device
     y = torch.empty((b, h, nc, Q, P), dtype=torch.float32, device=dev)
     state = torch.empty((b, h, nc, P, N), dtype=torch.float32, device=dev)
     decay = torch.empty((b, h, nc, Q), dtype=torch.float32, device=dev)
     if b * h * nc == 0:
+        return y, state, decay
+    if fake:
+        meta.launched("ssd_chunk", [xdt, dA, B, C], [y, state, decay])
         return y, state, decay
     lib = _lib()
     # the launcher uses the current device; this restores the caller's after

@@ -28,8 +28,9 @@ kernel's scalar loads.
 
 ``topk_mask(x, tau)`` runs the plain PyTorch version for a tensor on the
 CPU and launches the kernel for a tensor on a CUDA device; there is no
-fallback from one to the other. ``LAUNCHES`` counts kernel launches. Each
-stream gets its scratch at its first call, which must not be inside a
+fallback from one to the other; a fake CUDA tensor takes the meta branch
+(``kernels/meta.py``). ``LAUNCHES`` counts kernel launches. Each stream
+gets its scratch at its first call, which must not be inside a
 CUDA graph capture (it raises); later calls on that stream may be
 captured and replayed.
 """
@@ -40,7 +41,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build, one_wave
+from repro_torch.kernels import _build, meta, one_wave
 from repro_torch.kernels.ftz import flush_subnormal
 
 # kernel launches since import (or since a caller reset it to 0)
@@ -133,12 +134,15 @@ def topk_mask(x: torch.Tensor, tau: torch.Tensor
     if n > MAX_N:
         raise ValueError(f"topk_mask counts at most {MAX_N} elements, got "
                          f"{n}")
-    stream = torch._C._cuda_getCurrentRawStream(device.index)
-    words = _SCRATCH.get(device, stream)
-    wave = words.numel() - 1
     tau = tau.contiguous()
     out = torch.empty(n, dtype=torch.float32, device=device)
     count = torch.empty((), dtype=torch.float32, device=device)
+    if meta.is_fake(x):
+        meta.launched("topk_mask", [x, tau], [out, count])
+        return out, count
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    words = _SCRATCH.get(device, stream)
+    wave = words.numel() - 1
     rc = _lib().topk_mask_launch(
         x.data_ptr(), tau.data_ptr(), out.data_ptr(),
         words.data_ptr() + 8 * wave, count.data_ptr(), n,

@@ -83,13 +83,20 @@ def dispatch_combine(top_w: torch.Tensor, top_e: torch.Tensor, E: int,
     flat = F.one_hot(e, E).to(torch.float32)                    # (B,S·k,E)
     pos_in_e = (torch.cumsum(flat, dim=1) - flat) * flat
     pos = torch.gather(pos_in_e, 2, e[..., None])[..., 0].long()  # (B,S·k)
-    b, t = torch.nonzero(pos < C, as_tuple=True)
-    idx = (b, t // k, e[b, t], pos[b, t])
-    dispatch = top_w.new_zeros((B, S, E, C))
-    combine = top_w.new_zeros((B, S, E, C))
-    dispatch[idx] = 1.0
-    combine[idx] = top_w.reshape(B, S * k)[b, t]
-    return dispatch, combine
+    # each kept (token, slot)'s element of the flat (B, S, E, C) one-hots;
+    # a dropped one's is a spare element past them, so no write takes a
+    # shape that depends on the data (selecting the kept ones would read
+    # their count back to the host)
+    n = B * S * E * C
+    b = torch.arange(B, device=e.device)[:, None]
+    s = torch.arange(S * k, device=e.device)[None, :] // k
+    where = torch.where(pos < C, ((b * S + s) * E + e) * C + pos,
+                        n).reshape(-1)
+    dispatch = top_w.new_zeros(n + 1).scatter(
+        0, where, top_w.new_ones(where.shape))
+    combine = top_w.new_zeros(n + 1).scatter(0, where, top_w.reshape(-1))
+    return (dispatch[:n].reshape(B, S, E, C),
+            combine[:n].reshape(B, S, E, C))
 
 
 def moe_ffn(p: Dict, x: torch.Tensor, *, experts_per_token: int,

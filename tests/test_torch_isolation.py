@@ -61,7 +61,9 @@ def test_no_port_module_imports_jax_or_the_reference():
     rel = {os.path.relpath(p, PORT) for p in files}
     assert {"obs/trace.py", "obs/meters.py", "obs/log.py", "obs/http.py",
             "checkpoint/ckpt.py", "comm/transport.py", "launch/worker.py",
-            "analysis/protocol.py"} <= rel
+            "analysis/protocol.py", "utils/hlo_analyzer.py",
+            "utils/roofline.py", "launch/specs.py",
+            "launch/dryrun.py"} <= rel
     bad = [(os.path.relpath(p, REPO), m) for p in files
            for m in _imported_modules(p) if _forbidden(m)]
     assert not bad, bad
@@ -82,7 +84,9 @@ def test_importing_the_trainer_loads_no_jax():
             "repro_torch.core.baselines, repro_torch.core.error_feedback, "
             "repro_torch.obs, repro_torch.obs.http, repro_torch.checkpoint, "
             "repro_torch.comm.transport, repro_torch.launch.worker, "
-            "repro_torch.analysis.protocol\n"
+            "repro_torch.analysis.protocol, repro_torch.utils.hlo_analyzer, "
+            "repro_torch.utils.roofline, repro_torch.launch.specs, "
+            "repro_torch.launch.dryrun\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
