@@ -239,12 +239,35 @@ Phases, in order; any failure exits non-zero:
              prefill_32k of every architecture at its published widths on
              (1, 1), nothing cut: its peak and dominant term.
 
+22. tensor parallelism — a (1, 2) mesh, two ranks spawned on this card
+             over gloo (``chip_smoke.py --tp-rank ...``; NCCL refuses two
+             ranks on one device; gloo's CUDA collectives routed through
+             c10d, ``launch/mesh.py``), every parameter a ``DTensor`` shard
+             on the ``model`` sub-mesh placed by the reference's rules,
+             each rank cutting its shards from the same seeded whole leaves:
+             (a) llama4-scout at phase 19 (c)'s cut (1 layer, f32, batch 2
+             x 1,024): each rank's parameter shards equal to the TP dry
+             run's per-device parameters exactly, ``make_entry``'s prefill
+             and 4 decode steps within 2e-3 of the single-process run on
+             the card, and one bf16 3SFC encode with B1 on the local shards
+             (S + 1 tree calls, one launch per placement group) held to the
+             single-process encode by phase 16's rule (ten times the gap a
+             one-bf16-rounding nudge of D_syn's start opens); (b) tinyllama's
+             train_4k round (2 layers, f32, phase 16's settings, one client
+             on this mesh) against the single-process round by phase 16's
+             rule, B1 and B2 launches as predicted, the peak printed beside
+             the TP dry run's; (c) mamba2-370m's prefill at full depth
+             (batch 4 x 2,048, B4): 48 B4 launches a rank, within ten times
+             the gap a few-ulp nudge of the params opens (never under phase
+             10's atol). The wall from the ranks' start to the last check
+             stays under 180 s.
+
 Phase 7 adds the full-width mamba2 round's profile and B1, B2 (with
 ``torch.addcmul`` beside), B3a and B3b at mamba2's d, the wall time of
 a main-path round under phase 17 (a) beside the single-process round, in
 turns, and phase 19's tinyllama prefill and round profiles (taken there,
 while their models were on the card). The phases run in the order 1-6,
-8-21, 7, so that the times can report each kernel's launches on its
+8-22, 7, so that the times can report each kernel's launches on its
 path. The last lines are the run's
 wall time from the script's start, the card's name and power limit, one
 JSON object with every kernel's numbers, the list of kernels, and
@@ -272,6 +295,7 @@ import warnings
 # the whole run's wall clock starts here, before torch is imported
 _T0 = time.perf_counter()
 HERE = os.path.dirname(os.path.abspath(__file__))
+CHIP_SMOKE = os.path.abspath(__file__)
 sys.path.insert(0, os.path.join(HERE, "src"))
 
 import numpy as np  # noqa: E402
@@ -489,6 +513,27 @@ DRY_TRAIN_SHAPE = ShapeConfig("train_4k", LM_SEQ, LM_N * LM_BATCH, "train")
 DRY_SERVE_SHAPE = ShapeConfig("prefill_32k", SERVE_PROMPT, SERVE_BATCH,
                               "prefill")
 DRY_PEAK_RTOL = 0.10
+# phase 22: tensor parallelism on a (1, TP_WORLD) mesh, its ranks spawned
+# on this card over gloo (NCCL refuses two ranks on one device): (a)
+# llama4-scout at phase 19 (c)'s cut and batch, (b) tinyllama's train_4k
+# round cut to TP_TRAIN_LAYERS at phase 16's settings (N = 1 client on
+# this mesh), (c) mamba2 at full depth at phase 9's batch; the seeds every
+# process draws the same params and inputs from; the wall from the ranks'
+# start to the last check within TP_WALL_S
+TP_WORLD, TP_TIMEOUT_S, TP_WALL_S = 2, 600, 180.0
+TP_SERVE, TP_SSM = "llama4-scout-17b-a16e", "mamba2-370m"
+TP_DECODE, TP_TRAIN_LAYERS = 4, 2
+TP_SEEDS = {"serve": 221, "encode": 231, "train": 241, "ssm": 251}
+# (a)'s encode runs in bf16 (ENCODE_BF16): its stats are held to the
+# single-process encode's within ROUND_FACTOR times the relative gap that
+# moving D_syn's start by one bf16 rounding (2^-8 relative) opens, never
+# under ROUND_FLOOR (phase 16's rule for an ill-conditioned computation)
+TP_BF16_NUDGE = 2.0 ** -8
+# (a)'s check of B1's sharded route gathers each leaf whole and sums it in
+# f64 this many elements at a time
+TP_F64_CHUNK = 1 << 26
+# (b)'s loss against the single-process round's: f32 rounding only
+TP_LOSS_RTOL = 1e-5
 # vectors of 4 Mi + 5 elements the B5/B6 timing rotates over: 6 x 16.8 MB
 # of inputs, twice the H100's 50 MB L2
 L2_ROTATE = 6
@@ -4224,6 +4269,516 @@ def phase_dry_runs(families: dict) -> dict:
             "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# phase 22: tensor parallelism on a (1, 2) mesh, two ranks on this card
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def entry_configs(cfgs: dict):
+    """The entry builders' ``get_config`` answering ``cfgs[arch]`` while
+    open (the phase's cut configurations), the dry run's too."""
+    saved = specs_mod.get_config, dryrun.get_config
+    specs_mod.get_config = dryrun.get_config = lambda arch: cfgs[arch]
+    try:
+        yield
+    finally:
+        specs_mod.get_config, dryrun.get_config = saved
+
+
+def tp_configs() -> dict:
+    """(a) llama4-scout at phase 19 (c)'s cut, f32; (b) tinyllama cut to
+    TP_TRAIN_LAYERS, f32; (c) mamba2 at full width and depth, f32, B4."""
+    return {
+        TP_SERVE: get_config(TP_SERVE).replace(
+            dtype="float32", num_layers=FAMILY_DEPTH[TP_SERVE]),
+        TL_ARCH: get_config(TL_ARCH).replace(dtype="float32",
+                                             num_layers=TP_TRAIN_LAYERS),
+        TP_SSM: get_config(TP_SSM).replace(dtype="float32",
+                                           use_pallas_ssd=True),
+    }
+
+
+TP_SHAPES = {
+    "serve": dict(prefill_32k=ShapeConfig("prefill_32k", FAMILY_T,
+                                          FAMILY_BATCH, "prefill"),
+                  decode_32k=ShapeConfig("decode_32k", FAMILY_T,
+                                         FAMILY_BATCH, "decode")),
+    "train": dict(train_4k=ShapeConfig("train_4k", LM_SEQ, LM_BATCH,
+                                       "train")),
+    "ssm": dict(prefill_32k=ShapeConfig("prefill_32k", SERVE_PROMPT,
+                                        SERVE_BATCH, "prefill")),
+}
+
+
+def tp_inputs(dev, cfg, shape: ShapeConfig, seed: int):
+    """A prompt and TP_DECODE single-token steps, seeded."""
+    g = gen(dev, seed)
+    tokens = torch.randint(0, cfg.vocab_size, (shape.global_batch,
+                                               shape.seq_len),
+                           generator=g, device=dev)
+    steps = torch.randint(0, cfg.vocab_size, (TP_DECODE, shape.global_batch),
+                          generator=g, device=dev)
+    return tokens, steps
+
+
+def tp_syn0(dev, cfg, seed: int) -> SynData:
+    return init_syn(gen(dev, seed), syn_spec_for(cfg, LM_COMP))
+
+
+def tp_loss_grad(model, params, tokens):
+    """The loss gradient at ``params`` (plain or placed), each leaf laid
+    out as its parameter."""
+    from repro_torch.models import shard
+    leaves, treedef = tree_flatten(params)
+    w = [p.detach().requires_grad_(True) for p in leaves]
+    mm = shard.mesh_of(params)
+    with shard.context(mm):
+        loss = model.loss(tree_unflatten(treedef, w),
+                          {"tokens": shard.enter(tokens, mm)})
+        grads = torch.autograd.grad(loss, w)
+    return tree_unflatten(treedef, [shard.placed_as(g, p)
+                                    for g, p in zip(grads, w)])
+
+
+def tp_encode(model, cfg, params, dev, nudge: float = 0.0,
+              trees: bool = False):
+    """One 3SFC encode (LM_COMP's steps) of a loss gradient on one
+    FAMILY_ENCODE_SEQ-token sequence: the (stats, s, cosine) triple.
+    ``nudge``: D_syn's start moved by a relative ``nudge``·U(-1/2, 1/2).
+    ``trees``: also the final D_syn gradient ``gw`` and the f32 target,
+    laid out as ``params``."""
+    from repro_torch.models import shard
+    mm = shard.mesh_of(params)
+    tokens = torch.randint(0, cfg.vocab_size, (1, FAMILY_ENCODE_SEQ),
+                           generator=gen(dev, TP_SEEDS["encode"] + 1),
+                           device=dev)
+    # the target in f32 once: B1 reads f32, and a bf16 target would be
+    # cast again at every one of the S + 1 calls (two ranks share the card)
+    target = flat.tree_map(lambda t: t.float(),
+                           tp_loss_grad(model, params, tokens))
+    syn0 = tp_syn0(dev, cfg, TP_SEEDS["encode"] + 2)
+    if nudge:
+        g = gen(dev, TP_SEEDS["encode"] + 3)
+        syn0 = SynData(*[t * (1 + nudge * (torch.rand(
+            t.shape, generator=g, device=dev) - 0.5)) for t in syn0])
+    syn0 = shard.enter(syn0, mm)
+    with shard.context(mm):
+        res = threesfc.encode(syn_loss_fn(model), params, target, syn0,
+                              steps=LM_COMP.syn_steps, lr=LM_COMP.syn_lr)
+    out = {k: shard.leave(getattr(res, k)).float().cpu()
+           for k in ("stats", "s", "cosine")}
+    if trees:
+        out.update(gw=res.gw, target=target)
+    return out
+
+
+def check_b1_sharded(label: str, a: dict, b: dict) -> float:
+    """B1's sharded route alone, at f32: one ``ops.tree_fused_stats`` call
+    on placed trees (the ``Shard`` leaves' local triple all-reduced, the
+    ``Replicate`` leaves' added once: one B1 launch per placement group)
+    against the triple of the same trees gathered whole leaf by leaf and
+    summed in f64, within B1_RTOL of (‖a‖‖b‖, ‖a‖², ‖b‖²), the bound of
+    B1 against its f64 sums on one device (``check_b1_f64``). A dropped
+    or early-read all-reduce moves ‖a‖² by about half, a replicated leaf
+    counted twice by its share. Collective: every rank calls it."""
+    groups = len({t.placements[0].is_shard() for t in flat.tree_leaves(a)})
+    with torch.no_grad():
+        before = counts()
+        got = sharding_mod.gather_params(ops.tree_fused_stats(a, b))
+        launched = {k: v - before[k] for k, v in counts().items()}
+        if launched != only(fused_cosine=groups):
+            raise AssertionError(f"{label}: B1's sharded route launched "
+                                 f"{launched}, expected {groups} B1")
+        want = torch.zeros(3, dtype=torch.float64, device=got.device)
+        for x, y in zip(flat.tree_leaves(a), flat.tree_leaves(b)):
+            x, y = (t.reshape(-1) for t in sharding_mod.gather_params([x, y]))
+            for i in range(0, x.numel(), TP_F64_CHUNK):
+                x64 = x[i:i + TP_F64_CHUNK].double()
+                y64 = y[i:i + TP_F64_CHUNK].double()
+                want += torch.stack([torch.dot(x64, y64),
+                                     torch.dot(x64, x64),
+                                     torch.dot(y64, y64)])
+            del x, y, x64, y64
+    got, want = got.double().cpu(), want.cpu()
+    scale = torch.stack([torch.sqrt(want[1] * want[2]), want[1], want[2]])
+    rel = float(((got - want).abs() / scale).max())
+    print(f"{label}: B1's sharded route {got.tolist()} against the "
+          f"gathered trees' f64 sums {want.tolist()}: {rel:.3e} of (|a||b|, "
+          f"|a|², |b|²) (bound {B1_RTOL}); launches {launched}", flush=True)
+    if not rel <= B1_RTOL:
+        raise AssertionError(f"{label}: B1's sharded route is {rel:.3e} of "
+                             f"its scale from the gathered f64 sums, over "
+                             f"{B1_RTOL}")
+    return rel
+
+
+def tp_singles(dev, cfgs: dict) -> dict:
+    """The single-process runs (a) and (c) hold the ranks to, on this
+    card, before the ranks start."""
+    out = {}
+    cfg = cfgs[TP_SERVE]
+    model = build_model(cfg)
+    params = model.init(gen(dev, TP_SEEDS["serve"]))
+    tokens, steps = tp_inputs(dev, cfg, TP_SHAPES["serve"]["prefill_32k"],
+                              TP_SEEDS["serve"] + 1)
+    with torch.inference_mode():
+        logits, cache, t = model.prefill(params, tokens, FAMILY_T)
+        seq = [logits.cpu()]
+        for i in range(TP_DECODE):
+            logits, cache = model.decode_step(params, cache, steps[i], t + i)
+            seq.append(logits.cpu())
+    out["serve"] = seq
+    del params, cache, logits
+    free_card()
+    cfg_bf = cfg.replace(param_dtype="bfloat16", dtype="bfloat16")
+    model = build_model(cfg_bf)
+    params = model.init(gen(dev, TP_SEEDS["encode"]))
+    out["encode"] = tp_encode(model, cfg_bf, params, dev)
+    # bf16 makes the encode ill-conditioned: the gap one bf16 rounding of
+    # D_syn's start opens, phase 16's rule's yardstick
+    nudged = tp_encode(model, cfg_bf, params, dev, nudge=TP_BF16_NUDGE)
+    out["encode_nudge_gap"] = float(((nudged["stats"] - out["encode"][
+        "stats"]).abs() / out["encode"]["stats"].abs()).max())
+    del params
+    free_card()
+    cfg = cfgs[TP_SSM]
+    model = build_model(cfg)
+    params = model.init(gen(dev, TP_SEEDS["ssm"]))
+    tokens, _ = tp_inputs(dev, cfg, TP_SHAPES["ssm"]["prefill_32k"],
+                          TP_SEEDS["ssm"] + 1)
+    with torch.inference_mode():
+        out["ssm"] = model.prefill(params, tokens, SERVE_PROMPT)[0].cpu()
+        # 48 layers deep: the gap params moved by a few ulps open
+        g = gen(dev, TP_SEEDS["ssm"] + 2)
+        for t in flat.tree_leaves(params):
+            t.mul_(1 + LM_NUDGE * (torch.rand(t.shape, generator=g,
+                                              device=dev) - 0.5))
+        nudged = model.prefill(params, tokens, SERVE_PROMPT)[0].cpu()
+    out["ssm_nudge_gap"] = float((nudged - out["ssm"]).abs().max())
+    del params
+    free_card()
+    return out
+
+
+def tp_dry_runs(cfgs: dict) -> dict:
+    """The TP dry runs on fake CUDA tensors of (a)'s prefill and (b)'s
+    round on a (1, 2) mesh: rank 0's parameter shards and peak."""
+    with entry_configs(cfgs):
+        with input_shapes(**TP_SHAPES["serve"]):
+            serve = dry_run(TP_SERVE, "prefill_32k", (1, TP_WORLD))
+        with input_shapes(**TP_SHAPES["train"]):
+            trained = dry_run(TL_ARCH, "train_4k", (1, TP_WORLD))
+    for res in (serve, trained):
+        print_dry(res)
+    return {"serve_params": (serve["parameter_count"],
+                             serve["parameter_bytes"]),
+            "train_peak_bytes": trained["memory_per_dev"]["peak_bytes"]}
+
+
+def phase_tp(dev) -> dict:
+    """Phase 22: tensor parallelism on a (1, 2) mesh, TP_WORLD ranks
+    spawned on this card over gloo (``chip_smoke.py --tp-rank ...``)."""
+    phase(f"tensor parallelism: a (1, {TP_WORLD}) mesh, {TP_WORLD} ranks on "
+          f"this card over gloo; (a) {TP_SERVE} serving "
+          f"({FAMILY_DEPTH[TP_SERVE]} layer, f32, batch {FAMILY_BATCH} x "
+          f"{FAMILY_T}, "
+          f"{TP_DECODE} decode steps) and a bf16 3SFC encode, (b) {TL_ARCH} "
+          f"train_4k round ({TP_TRAIN_LAYERS} layers, f32, N=1, B={LM_BATCH}, "
+          f"S={LM_SEQ}), (c) {TP_SSM} prefill at full depth (batch "
+          f"{SERVE_BATCH} x {SERVE_PROMPT}, B4)")
+    cfgs = tp_configs()
+    t0 = time.perf_counter()
+    singles = tp_singles(dev, cfgs)
+    dry = tp_dry_runs(cfgs)
+    print(f"  single-process runs and dry runs {time.perf_counter() - t0:.1f}"
+          f" s; {free_card():.2f} GiB allocated before the ranks")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        torch.save({"singles": singles, "dry": dry},
+                   os.path.join(tmp, "inputs.pt"))
+        store = os.path.join(tmp, "store")
+        argvs = [[sys.executable, CHIP_SMOKE, "--tp-rank",
+                  str(r), str(TP_WORLD), store, tmp, str(dev)]
+                 for r in range(TP_WORLD)]
+        logs = [os.path.join(tmp, f"rank{r}.log") for r in range(TP_WORLD)]
+        # two ranks' caching allocators share the card: segments that
+        # grow in place keep either from stranding the other's memory
+        env = {**os.environ,
+               "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+        t_ranks = time.perf_counter()
+        with ranks_mod.Ranks(argvs, logs, env=env) as ranks:
+            rcs = ranks.join(TP_TIMEOUT_S)
+            for r, rc in enumerate(rcs):
+                lines = ranks.log(r).strip().splitlines()
+                print("\n".join(f"  rank {r}: {line}" for line in
+                                lines[-(40 if rc else 14):]))
+            if any(rcs):
+                raise AssertionError(f"phase 22 ranks exited {rcs}")
+            res = [torch.load(os.path.join(tmp, f"tp.rank{r}.pt"))
+                   for r in range(TP_WORLD)]
+        wall = time.perf_counter() - t_ranks
+    print(f"  phase 22 wall from the ranks' start to the last check "
+          f"{wall:.1f} s (budget {TP_WALL_S:.0f} s)")
+    if wall > TP_WALL_S:
+        raise AssertionError(f"phase 22 took {wall:.1f} s")
+    return {"wall_s": wall, "dry": dry, "ranks": res}
+
+
+def metrics_cpu(m):
+    """A round's loss and cosines on the host."""
+    return m._replace(loss=m.loss.cpu(), cosine=m.cosine.cpu())
+
+
+def place_freeing(params: dict, mesh) -> dict:
+    """``params`` (whole) placed on the model sub-mesh leaf by leaf, each
+    whole leaf dropped from ``params`` once its shard is cut."""
+    from repro_torch.core.tree import tree_leaves_with_path
+    from repro_torch.models import shard
+    mm = sharding_mod.tp_mesh(mesh)
+    placements = sharding_mod.param_placements(params, mesh)
+    out = {}
+    for (path, _), p in zip(tree_leaves_with_path(params),
+                            tree_flatten(placements)[0]):
+        node, src = out, params
+        for k in path[:-1]:
+            node, src = node.setdefault(k, {}), src[k]
+        node[path[-1]] = shard.place(src[path[-1]], mm, p)
+        src[path[-1]] = None
+    return out
+
+
+def tp_child(argv) -> int:
+    """One rank of phase 22: ``chip_smoke.py --tp-rank RANK WORLD STORE DIR
+    DEVICE``. Runs (a)-(c) on its shards and holds each to the
+    single-process run; writes ``tp.rank<r>.pt``."""
+    from repro_torch.models import shard
+    rank, world, store, tmp = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    dev = torch.device(argv[4])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        t0 = time.perf_counter()
+        inp = torch.load(os.path.join(tmp, "inputs.pt"))
+        singles, dry = inp["singles"], inp["dry"]
+        # gloo's CUDA collectives routed through c10d (launch/mesh.py)
+        mesh = make_host_mesh(model=world, device=dev)
+        cfgs = tp_configs()
+        res = {}
+        # (a) serving
+        cfg = cfgs[TP_SERVE]
+        with entry_configs(cfgs), input_shapes(**TP_SHAPES["serve"]):
+            prefill, _ = specs_mod.make_entry(TP_SERVE, "prefill_32k", mesh)
+            decode, _ = specs_mod.make_entry(TP_SERVE, "decode_32k", mesh)
+        placed = place_freeing(build_model(cfg).init(
+            gen(dev, TP_SEEDS["serve"])), mesh)
+        free_card()
+        mine = (sum(shard.local(t).numel() for t in flat.tree_leaves(placed)),
+                sum(shard.local(t).numel() * t.element_size()
+                    for t in flat.tree_leaves(placed)))
+        print(f"(a) parameter shards {mine[0]:,} ({mine[1]:,} B); the TP dry "
+              f"run's per device {dry['serve_params'][0]:,} "
+              f"({dry['serve_params'][1]:,} B)", flush=True)
+        if mine != tuple(dry["serve_params"]):
+            raise AssertionError("(a) parameter shards differ from the dry "
+                                 "run's per-device parameters")
+        tokens, steps = tp_inputs(dev, cfg, TP_SHAPES["serve"]["prefill_32k"],
+                                  TP_SEEDS["serve"] + 1)
+        reset_counts()
+        with torch.no_grad():
+            logits, cache, t = prefill(placed, tokens)
+            seq = [logits]
+            for i in range(TP_DECODE):
+                logits, cache = decode(placed, cache, steps[i], t + i)
+                seq.append(logits)
+        serve_launched = counts()
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(seq, singles["serve"])):
+            a = a.cpu()
+            if not torch.allclose(a, b, **SERVE_CONTRACT_TOL):
+                raise AssertionError(f"(a) step {i}: TP logits off the "
+                                     f"single-process run by "
+                                     f"{float((a - b).abs().max()):.3e}")
+            worst = max(worst, float((a - b).abs().max()))
+        print(f"(a) prefill and {TP_DECODE} decode steps within "
+              f"{SERVE_CONTRACT_TOL} of the single-process run: max |diff| "
+              f"{worst:.3e}; launches {serve_launched}", flush=True)
+        del placed, cache, seq, logits
+        free_card()
+        cfg_bf = cfg.replace(param_dtype="bfloat16", dtype="bfloat16")
+        model = build_model(cfg_bf)
+        placed = place_freeing(model.init(gen(dev, TP_SEEDS["encode"])), mesh)
+        free_card()
+        reset_counts()
+        enc = tp_encode(model, cfg_bf, placed, dev, trees=True)
+        enc_launched = counts()
+        groups = len({t.placements[0].is_shard()
+                      for t in flat.tree_leaves(placed)})
+        want = only(fused_cosine=(LM_COMP.syn_steps + 1) * groups)
+        if enc_launched != want:
+            raise AssertionError(f"(a) encode launches {enc_launched}, "
+                                 f"expected {want}")
+        ref = singles["encode"]
+        gap = float(((enc["stats"] - ref["stats"]).abs()
+                     / ref["stats"].abs()).max())
+        print(f"(a) bf16 encode: stats {enc['stats'].tolist()} against "
+              f"{ref['stats'].tolist()} (largest relative gap {gap:.3e}), "
+              f"cosine {float(enc['cosine']):+.6f} against "
+              f"{float(ref['cosine']):+.6f}; launches {enc_launched} "
+              f"({LM_COMP.syn_steps + 1} tree calls x {groups} placement "
+              f"groups)", flush=True)
+        bound = max(ROUND_FLOOR, ROUND_FACTOR * singles["encode_nudge_gap"])
+        print(f"(a) the stats' gap bound: max({ROUND_FLOOR:g}, "
+              f"{ROUND_FACTOR:g} x the {singles['encode_nudge_gap']:.3e} a "
+              f"relative {TP_BF16_NUDGE:g} nudge of D_syn's start opens) = "
+              f"{bound:.3e}", flush=True)
+        if not gap <= bound:
+            raise AssertionError(f"(a) encode stats {gap:.3e} off the "
+                                 f"single-process encode's, over {bound:.3e}")
+        # the nudge rule above is for the end-to-end bf16 encode; the
+        # route itself is held at f32 on the encode's own trees
+        route = check_b1_sharded("(a) final D_syn gradient . f32 target",
+                                 enc.pop("gw"), enc.pop("target"))
+        res["serve"] = {"params": mine, "max_abs": worst, "encode_gap": gap,
+                        "encode_bound": bound, "b1_route_rel": route,
+                        "launches": serve_launched,
+                        "encode_launches": enc_launched}
+        del placed, model, enc
+        free_card()
+        # (b) one train_4k round
+        cfg = cfgs[TL_ARCH]
+        with entry_configs(cfgs), input_shapes(**TP_SHAPES["train"]):
+            entry, (spec, _, _) = specs_mod.make_entry(TL_ARCH, "train_4k",
+                                                       mesh)
+        model = build_model(cfg)
+        params = model.init(gen(dev, TP_SEEDS["train"]))
+        batch = lm_batches(dev, cfg, 1, LM_BATCH, LM_SEQ,
+                           TP_SEEDS["train"] + 1)
+        syn = tp_syn0(dev, cfg, TP_SEEDS["train"] + 2)
+        syn0 = SynData(*[t[None] for t in syn])
+        ef = flat.tree_map(lambda p: torch.zeros((1, *p.shape), device=dev),
+                           params)
+        s1, m1 = entry(FLState(params, ef, 0), batch, 0, syn0)
+        s1, m1 = state_to_cpu(s1), metrics_cpu(m1)
+        g = gen(dev, TP_SEEDS["train"] + 3)
+        nudged = flat.tree_map(lambda p: p * (1 + LM_NUDGE * (torch.rand(
+            p.shape, generator=g, device=dev) - 0.5)), params)
+        s3, m3 = entry(FLState(nudged, ef, 0), batch, 0, syn0)
+        s3, m3 = state_to_cpu(s3), metrics_cpu(m3)
+        nudged = flat.tree_map(torch.Tensor.cpu, nudged)
+        sh = make_fl_shardings(mesh)
+        state = FLState(sharding_mod.place_params(params, mesh),
+                        sharding_mod.place_params(ef, mesh,
+                                                  client_axis=sh.axes), 0)
+        # the single-process runs' trees wait on the host: the peak below
+        # is the tensor-parallel round's own
+        params = flat.tree_map(torch.Tensor.cpu, params)
+        del ef
+        free_card()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        s2, m2 = entry(state, batch, 0, syn0)
+        torch.cuda.synchronize()
+        peak, round_launched = torch.cuda.max_memory_allocated(), counts()
+        groups = len({t.placements[0].is_shard()
+                      for t in flat.tree_leaves(state.params)})
+        want = only(fused_cosine=(LM_COMP.syn_steps + 1) * groups,
+                    ef_update=1)
+        if round_launched != want:
+            raise AssertionError(f"(b) launches {round_launched}, expected "
+                                 f"{want}")
+        p2 = flat.tree_map(torch.Tensor.cpu,
+                           sharding_mod.gather_params(s2.params))
+        e2 = flat.tree_map(torch.Tensor.cpu,
+                           sharding_mod.gather_params(s2.ef))
+        m2 = metrics_cpu(m2)
+        upd = flat.tree_sub(params, s1.params)
+        gaps = {"update": rel_gap(upd, flat.tree_sub(params, p2)),
+                "ef": rel_gap(s1.ef, e2)}
+        nudge = {"update": rel_gap(upd, flat.tree_sub(nudged, s3.params)),
+                 "ef": rel_gap(s1.ef, s3.ef)}
+        for k in gaps:
+            bound = max(ROUND_FLOOR, ROUND_FACTOR * nudge[k])
+            print(f"(b) {k}: relative L2 gap to the single-process round "
+                  f"{gaps[k]:.3e}, the nudge's {nudge[k]:.3e}, bound "
+                  f"{bound:.3e}", flush=True)
+            if not gaps[k] <= bound:
+                raise AssertionError(f"(b) {k} gap {gaps[k]:.3e} over "
+                                     f"{bound:.3e}")
+        # the loss is the round's forward at the same params: f32 rounding
+        # only; the cosine comes out of the ill-conditioned encode: the
+        # nudge rule, as the update's
+        loss_gap = abs(float(m2.loss) - float(m1.loss)) / abs(float(m1.loss))
+        cos_gap = float(((m2.cosine - m1.cosine).abs()
+                         / m1.cosine.abs()).max())
+        cos_nudge = float(((m3.cosine - m1.cosine).abs()
+                           / m1.cosine.abs()).max())
+        cos_bound = max(ROUND_FLOOR, ROUND_FACTOR * cos_nudge)
+        print(f"(b) loss {float(m2.loss):.6f} against {float(m1.loss):.6f} "
+              f"(relative gap {loss_gap:.3e}, bound {TP_LOSS_RTOL:g}); "
+              f"cosine {m2.cosine.tolist()} against {m1.cosine.tolist()} "
+              f"(relative gap {cos_gap:.3e}, the nudge's {cos_nudge:.3e}, "
+              f"bound {cos_bound:.3e})", flush=True)
+        if not loss_gap <= TP_LOSS_RTOL:
+            raise AssertionError(f"(b) loss {loss_gap:.3e} off the "
+                                 f"single-process round's, over "
+                                 f"{TP_LOSS_RTOL:g}")
+        if not cos_gap <= cos_bound:
+            raise AssertionError(f"(b) cosine {cos_gap:.3e} off the "
+                                 f"single-process round's, over "
+                                 f"{cos_bound:.3e}")
+        ratio = peak / dry["train_peak_bytes"]
+        print(f"(b) launches {round_launched} ({LM_COMP.syn_steps + 1} tree "
+              f"calls x {groups} placement groups, one B2); peak "
+              f"{peak / 2**30:.3f} GiB (the single-process runs' trees on "
+              f"the host) against the TP dry run's "
+              f"{dry['train_peak_bytes'] / 2**30:.3f} GiB ({ratio:.4f})",
+              flush=True)
+        res["train"] = {"gaps": gaps, "nudge": nudge, "loss_gap": loss_gap,
+                        "cosine_gap": cos_gap, "cosine_nudge": cos_nudge,
+                        "peak_bytes": peak,
+                        "dry_peak_bytes": dry["train_peak_bytes"],
+                        "peak_ratio": ratio, "launches": round_launched}
+        del params, nudged, state, s1, s2, s3, p2, e2, upd
+        free_card()
+        # (c) mamba2 prefill through B4, every head on every rank
+        cfg = cfgs[TP_SSM]
+        with entry_configs(cfgs), input_shapes(**TP_SHAPES["ssm"]):
+            prefill, _ = specs_mod.make_entry(TP_SSM, "prefill_32k", mesh)
+        placed = place_freeing(build_model(cfg).init(
+            gen(dev, TP_SEEDS["ssm"])), mesh)
+        tokens, _ = tp_inputs(dev, cfg, TP_SHAPES["ssm"]["prefill_32k"],
+                              TP_SEEDS["ssm"] + 1)
+        reset_counts()
+        with torch.no_grad():
+            logits = prefill(placed, tokens)[0].cpu()
+        ssm_launched = counts()
+        if ssm_launched != only(ssd_chunk=SERVE_LAYERS):
+            raise AssertionError(f"(c) launches {ssm_launched}, expected "
+                                 f"{SERVE_LAYERS} B4")
+        err = float((logits - singles["ssm"]).abs().max())
+        bound = max(ROUTE_TOL["atol"], ROUND_FACTOR * singles["ssm_nudge_gap"])
+        print(f"(c) prefill against the single-process run: max |diff| "
+              f"{err:.3e} over |logits| <= "
+              f"{float(singles['ssm'].abs().max()):.3f}; the gap params "
+              f"moved by a relative {LM_NUDGE:g}·U(-1/2, 1/2) open "
+              f"{singles['ssm_nudge_gap']:.3e}, bound max(phase 10's atol "
+              f"{ROUTE_TOL['atol']:g}, {ROUND_FACTOR:g} x it) = {bound:.3e}; "
+              f"launches {ssm_launched}", flush=True)
+        if not err <= bound:
+            raise AssertionError(f"(c) prefill logits off the single-process "
+                                 f"run by {err:.3e}, over {bound:.3e}")
+        res["ssm"] = {"max_abs": err, "bound": bound, "launches": ssm_launched}
+        res["wall_s"] = time.perf_counter() - t0
+        torch.save(res, os.path.join(tmp, f"tp.rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     phase("device")
     if not torch.cuda.is_available():
@@ -4277,6 +4832,8 @@ def main() -> int:
     free_card()
     static = phase_contracts(dev)
     dry = phase_dry_runs(families)
+    free_card()
+    tp = phase_tp(dev)
     lm_state = state_to(lm_state, dev)
     lm_cfg = get_config("mamba2-370m")
     lm_model, lm_strategy, lm_run = train.lm_setup(
@@ -4324,6 +4881,7 @@ def main() -> int:
     print(json.dumps({"lm_families": families}))
     print(json.dumps({"static_contracts": static}))
     print(json.dumps({"dry_runs": dry}))
+    print(json.dumps({"tensor_parallel": tp}, default=str))
 
     print(f"chip_smoke wall {time.perf_counter() - _T0:.1f} s (from the "
           f"script's start, the kernels' build included)")
@@ -4339,4 +4897,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--fanout-rank"]:
         sys.exit(fanout_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--tp-rank"]:
+        sys.exit(tp_child(sys.argv[2:]))
     sys.exit(main())

@@ -19,6 +19,15 @@ builds one per configuration): while the round runs, ``RoundRecorder``
   the host (``HOST_READS``), through a ``TorchFunctionMode`` entered
   around every client's step.
 
+The contracts hold the reference's matrix, whose meshes have a ``model``
+axis of 1. Under tensor parallelism (a ``model`` axis larger than 1) the
+``model`` axis's collectives are the partitioner's: DTensor's functional
+collectives, issued inside every client's step as GSPMD's are inside the
+reference's per-client region, not the client scope's traffic across the
+client axes. The recorder does not see them (they bypass the
+``torch.distributed`` entry points it wraps); the op-trace analyzer counts
+them (``hlo_analyzer.functional_collective``).
+
 The client scope is ``repro_torch.fl.round.CLIENT_SCOPE``: the round wraps
 each client's local training and encode in a profiler range of that name
 and in ``client_scope()``, whose hooks (``SCOPE_HOOKS``) the recorder

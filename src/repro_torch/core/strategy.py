@@ -37,6 +37,7 @@ from repro_torch.configs.base import CompressorConfig
 from repro_torch.core import baselines, flat
 from repro_torch.core.tree import tree_flatten, tree_leaves, tree_unflatten
 from repro_torch.kernels import ops
+from repro_torch.models import shard
 
 PyTree = Any
 
@@ -113,10 +114,10 @@ class CompressionStrategy:
 
     # -- protocol ----------------------------------------------------------
     def init_ef_state(self, params: PyTree) -> PyTree:
-        """EF residual tree (zeros, f32) mirroring params."""
+        """EF residual tree (zeros, f32) mirroring params (and placed as
+        they are)."""
         return flat.tree_map(
-            lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device), params)
+            lambda p: torch.zeros_like(p, dtype=torch.float32), params)
 
     def payload_floats(self, params: PyTree) -> float:
         """Accounted per-round uplink size in floats (paper Eq. 1)."""
@@ -415,6 +416,8 @@ class ThreeSFCStrategy(CompressionStrategy):
         self._need_loss_fn()
         syn0 = key if isinstance(key, threesfc.SynData) \
             else threesfc.init_syn(key, self.syn_spec)
+        # replicated on the model sub-mesh under tensor parallelism
+        syn0 = shard.enter(syn0, shard.mesh_of(params))
         res = threesfc.encode(
             self.loss_fn, params, u, syn0,
             steps=self.cfg.syn_steps, lr=self.cfg.syn_lr,
@@ -451,7 +454,8 @@ class ThreeSFCStrategy(CompressionStrategy):
         # a leaf the loss never reads gets zeros, as in threesfc.decode
         grads = torch.autograd.grad(total, leaves, allow_unused=True,
                                     materialize_grads=True)
-        return tree_unflatten(treedef, list(grads))
+        return tree_unflatten(treedef, [shard.placed_as(g, p)
+                                        for g, p in zip(grads, leaves)])
 
     def mask_payloads(self, payloads, w):
         """(D_syn, s) is linear in s, so masking a client is s_i <- w_i s_i."""

@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.core import flat
 from repro_torch.core.tree import PyTree, tree_flatten, tree_unflatten
+from repro_torch.models import shard
 
 
 class SynData(NamedTuple):
@@ -110,7 +111,8 @@ def _grad_params(loss_fn: LossFn, params: PyTree, syn: SynData, *,
     loss = loss_fn(params, syn)
     grads = torch.autograd.grad(loss, leaves, create_graph=create_graph,
                                 allow_unused=True, materialize_grads=True)
-    return tree_unflatten(treedef, list(grads))
+    return tree_unflatten(treedef, [shard.placed_as(g, p)
+                                    for g, p in zip(grads, leaves)])
 
 
 def _objective(loss_fn: LossFn, params: PyTree, syn: SynData,
@@ -181,7 +183,7 @@ def encode(
         g = torch.autograd.grad(val, list(syn_v), allow_unused=True)
         # an input the loss never reads (dense labels' empty y_rank) has a
         # zero gradient, as jax.grad reports it
-        g = [torch.zeros_like(p) if gi is None else gi
+        g = [torch.zeros_like(p) if gi is None else shard.placed_as(gi, p)
              for p, gi in zip(syn, g)]
         with torch.no_grad():
             syn = update(syn, g)

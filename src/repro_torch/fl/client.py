@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.core import flat
 from repro_torch.core.tree import tree_flatten, tree_leaves, tree_unflatten
+from repro_torch.models import shard
 
 PyTree = Any
 LossFn = Callable[[PyTree, Dict[str, torch.Tensor]], torch.Tensor]
@@ -26,7 +27,8 @@ def _value_and_grad(loss_fn: LossFn, params: PyTree, batch: PyTree
     w = [p.detach().requires_grad_(True) for p in leaves]
     v = loss_fn(tree_unflatten(treedef, w), batch)
     grads = torch.autograd.grad(v, w)
-    return v.detach(), tree_unflatten(treedef, list(grads))
+    return v.detach(), tree_unflatten(treedef, [
+        shard.placed_as(g, p) for g, p in zip(grads, w)])
 
 
 def _grad_microbatched(loss_fn: LossFn, params: PyTree, batch: PyTree,
@@ -38,9 +40,8 @@ def _grad_microbatched(loss_fn: LossFn, params: PyTree, batch: PyTree,
     if num_micro <= 1:
         return _value_and_grad(loss_fn, params, batch)
     mb = tree_leaves(batch)[0].shape[0] // num_micro
-    acc = flat.tree_map(
-        lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-        params)
+    acc = flat.tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                        params)
     tot = torch.zeros((), dtype=torch.float32,
                       device=tree_leaves(params)[0].device)
     for i in range(num_micro):

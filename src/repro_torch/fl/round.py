@@ -66,6 +66,14 @@ what the step does (no collective, no host read of a tensor's value).
 With ``donate=True`` (``RoundEngine``'s default) the round writes the new
 EF rows into the input state's EF tensors instead of a second N×d tree.
 
+Tensor parallelism: when the state's params are ``DTensor``s on the
+``model`` sub-mesh (``FLShardings.place_state`` on a mesh whose model axis
+is larger than 1), the round runs in ``models.shard``'s context, each
+client's batch enters replicated on that mesh, the per-leaf math runs on
+the shards (the kernels on local shards, ``kernels.ops``), and the new
+params and EF stay placed as they came; the metrics leave as plain
+tensors. Codec mode does not combine with it (``NotImplementedError``).
+
 Randomness: client ``i``'s encoder draws from a ``torch.Generator`` seeded
 with ``fold_in(key, i)``, where ``key`` is the round's integer seed; the
 round function's ``syn0`` argument replaces those draws with given initial
@@ -90,6 +98,7 @@ from repro_torch.core.threesfc import SynData
 from repro_torch.fl import faults as faults_lib
 from repro_torch.fl.client import local_train
 from repro_torch.fl.server import aggregate, server_update
+from repro_torch.models import shard
 
 PyTree = Any
 
@@ -443,6 +452,25 @@ def build_fl_round(
                  weights: Optional[torch.Tensor] = None,
                  syn0: Optional[SynData] = None, *, donate: bool = False
                  ) -> Tuple[FLState, RoundMetrics]:
+        tp = shard.mesh_of(state.params)
+        if tp is None:
+            return run_round(state, client_batches, key, weights, syn0,
+                             donate, None)
+        if wired:
+            raise NotImplementedError(
+                "wire='codec' with tensor parallelism (a model axis larger "
+                "than 1): no entry of the reference reaches it")
+        with shard.context(tp):
+            new, rm = run_round(state, client_batches, key, weights, syn0,
+                                donate, tp)
+        return new, rm._replace(**{f: shard.leave(getattr(rm, f))
+                                   for f in ("loss", "cosine",
+                                             "payload_floats",
+                                             "update_norm")})
+
+    def run_round(state: FLState, client_batches: PyTree, key: int,
+                  weights: Optional[torch.Tensor], syn0: Optional[SynData],
+                  donate: bool, tp) -> Tuple[FLState, RoundMetrics]:
         params = state.params
         device = flat.tree_leaves(params)[0].device
         if faulted:
@@ -470,7 +498,8 @@ def build_fl_round(
             # i: the global client id; j: its row in this rank's EF rows
             # and batch tree
             ef_i = flat.tree_map(lambda e: e[j], state.ef)
-            batches_i = flat.tree_map(lambda x: x[j], client_batches)
+            batches_i = shard.enter(
+                flat.tree_map(lambda x: x[j], client_batches), tp)
             key_i = (SynData(*[t[i] for t in syn0]) if syn0 is not None
                      else client_generator(key, i, device))
             # every client trains and encodes, scheduled or not, as in the

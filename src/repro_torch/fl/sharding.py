@@ -7,7 +7,13 @@ engine, the round function and the trainer share, over the ranks of a
 * ``params`` — replicated: every rank holds the global model w^t, so the
   per-client local-SGD and encode region needs no collective to read it,
   and the server update runs on every rank, the same code on the same
-  inputs (no broadcast).
+  inputs (no broadcast). This is the reference's fan-out contract on any
+  mesh (its width-matched (1, P) mesh included). Tensor parallelism is
+  placed explicitly: ``place_params`` puts each leaf on the ``model``
+  sub-mesh by the JAX package's rule for it
+  (``models.params.sharding_specs``), a ``DTensor``, ``Shard(dim)`` where
+  the spec names ``model``, ``Replicate()`` elsewhere, as the reference
+  places params by rule in its entries' specs (``launch/specs.py``).
 * ``client`` — leading axis sharded over ``client_axes(mesh)``: the N×d EF
   residual tree, the ``ClientPools`` and the per-round ``(N, K, B, ...)``
   batch trees carry the client dimension first. Rank r of the client
@@ -21,11 +27,19 @@ engine, the round function and the trainer share, over the ranks of a
 ``replicated`` and ``client`` name these as ``torch.distributed.tensor``
 placements, one per mesh dimension; ``state`` is the ``FLState``-shaped
 tree of them, and ``place_state`` / ``gather_state`` cut and gather
-exactly the fields it places as ``client``. The port keeps every tensor a
-plain local tensor: a rank's share of a client tree is its rows
-(``place_client_tree``).
+exactly the fields it places as ``client``. On the client axes the port
+keeps every tensor a plain local tensor: a rank's share of a client tree
+is its rows (``place_client_tree``). On the ``model`` axis
+``place_params`` places each leaf (of the params, or with
+``client_axis`` of the EF tree) from the whole tensor every rank holds,
+each rank cutting its own slice (no scatter), and
+``gather_params`` gathers them back whole (for comparisons and the end of
+a run). An EF leaf is placed as its parameter, one dimension further
+right: the client rows come first and are never sharded on ``model``.
 
-The round's only collective is ``all_gather_rows``: each rank packs its
+The round's only collective on the client axes is ``all_gather_rows``
+(the ``model`` axis's are DTensor's own, inserted by its sharding
+propagation, as GSPMD's are in the reference): each rank packs its
 clients' records into one ``uint8`` buffer (byte views of the tensors, so
 the round trip is exact) and one ``all_gather_into_tensor`` lays them out
 in client order. The call exists in every torch the port runs on; newer
@@ -48,10 +62,12 @@ from typing import Any, Sequence, Tuple
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.core.tree import tree_flatten, tree_map, tree_unflatten
-from repro_torch.launch.mesh import client_axes
+from repro_torch.launch.mesh import client_axes, model_mesh
+from repro_torch.models import params as params_lib
+from repro_torch.models import shard
 
 PyTree = Any
 
@@ -74,6 +90,14 @@ def all_gather_rows(rows: Sequence[PyTree], group) -> PyTree:
     return."""
     global COLLECTIVES, GATHERED_BYTES
     leaves0, treedef = tree_flatten(rows[0])
+    if any(isinstance(l, DTensor) for l in leaves0):
+        # tensor parallel: gather the model shards, each rank its own, and
+        # place the stacked leaves one dimension further right
+        got = all_gather_rows([tree_map(shard.local, r) for r in rows],
+                              group)
+        return tree_unflatten(treedef, [
+            _stacked_like(g, l) for g, l in zip(tree_flatten(got)[0],
+                                                leaves0)])
     metas = [(l.shape, l.dtype, l.numel() * l.element_size())
              for l in leaves0]
     local = torch.stack([torch.cat([_as_bytes(l)
@@ -95,6 +119,51 @@ def all_gather_rows(rows: Sequence[PyTree], group) -> PyTree:
                       .reshape((total, *shape)))
         off += nb
     return tree_unflatten(treedef, leaves)
+
+
+def _stacked_like(t: torch.Tensor, ref) -> torch.Tensor:
+    """``t``, this rank's shard of ``ref``-placed leaves stacked on a new
+    leading axis, as a ``DTensor`` (``t`` itself when ``ref`` is plain)."""
+    if not isinstance(ref, DTensor):
+        return t
+    placements = [Shard(p.dim + 1) if isinstance(p, Shard) else p
+                  for p in ref.placements]
+    return DTensor.from_local(t, ref.device_mesh, placements,
+                              run_check=False)
+
+
+def tp_mesh(mesh: DeviceMesh):
+    """The ``model`` sub-mesh when it is larger than 1 (tensor parallelism
+    on), else ``None``: on a model axis of 1 every leaf stays plain."""
+    mm = model_mesh(mesh)
+    return mm if mm is not None and mm.size() > 1 else None
+
+
+def param_placements(params: PyTree, mesh: DeviceMesh,
+                     client_axis=None) -> PyTree:
+    """Each leaf's placement on the ``model`` sub-mesh, from its rule."""
+    specs = params_lib.sharding_specs(params, mesh, client_axis=client_axis)
+    return tree_map(params_lib.model_placement, specs)
+
+
+def place_params(params: PyTree, mesh: DeviceMesh,
+                 client_axis=None) -> PyTree:
+    """``params`` (whole on every rank) placed on the ``model`` sub-mesh by
+    the rules; the tree as it is when the model axis is 1. With
+    ``client_axis`` the leaves carry a leading client axis (an EF tree),
+    which stays unsharded on ``model``."""
+    mm = tp_mesh(mesh)
+    if mm is None:
+        return params
+    return tree_map(lambda x, p: shard.place(x, mm, p), params,
+                    param_placements(params, mesh, client_axis))
+
+
+def gather_params(tree: PyTree) -> PyTree:
+    """``place_params`` undone: every ``DTensor`` leaf whole, as a plain
+    tensor (one collective per sharded leaf). For tests and the end of a
+    run."""
+    return shard.leave(tree)
 
 
 def _rows(tree: PyTree, lo: int, hi: int) -> PyTree:

@@ -42,6 +42,7 @@ from repro_torch.kernels import fused_cosine as _fc
 from repro_torch.kernels import sign_quant as _sq
 from repro_torch.kernels import ssd_chunk as _ssd
 from repro_torch.kernels import topk_mask as _tm
+from repro_torch.models import shard
 
 # Per-chunk element budget for the tree-streaming reductions: 4 Mi elements
 # = 16 MiB f32 per operand.
@@ -196,10 +197,51 @@ def tree_fused_stats(a_tree: PyTree, b_tree: PyTree) -> torch.Tensor:
     CPU one plain call per chunk of ``_chunk_plan``, the triples summed in
     f32 (see the module docstring). Mixed-dtype trees are cast to f32 leaf
     by leaf; a and b must share structure and leaf shapes (``ValueError``
-    otherwise).
+    otherwise). ``DTensor`` leaves take the sharded route
+    (``_sharded_stats``) and give a replicated ``DTensor`` triple.
     """
     a_leaves, b_leaves = _check_lockstep(a_tree, b_tree)
+    if any(shard.is_dtensor(l) for l in a_leaves + b_leaves):
+        return _sharded_stats(a_leaves, b_leaves)
     return _TreeFusedStats.apply(len(a_leaves), *a_leaves, *b_leaves)
+
+
+def _sharded_stats(a_leaves: list, b_leaves: list) -> torch.Tensor:
+    """The triple of ``DTensor`` leaves on one 1-D mesh: the ``Shard``
+    leaves' local triple (the route of plain leaves: one B1 launch per
+    table on the card) summed over the mesh by one differentiable
+    all-reduce, then the ``Replicate`` leaves' triple added once. Each
+    pair of leaves is placed alike."""
+    from torch.distributed.tensor import Replicate, Shard
+    _check_placed_alike(a_leaves, b_leaves)
+    mesh = a_leaves[0].device_mesh
+    groups = {True: ([], []), False: ([], [])}
+    for a, b in zip(a_leaves, b_leaves):
+        la, lb = groups[isinstance(a.placements[0], Shard)]
+        la.append(shard.unwrap(a))
+        lb.append(shard.unwrap(b))
+    total = None
+    for sharded in (True, False):
+        la, lb = groups[sharded]
+        if not la:
+            continue
+        t = _TreeFusedStats.apply(len(la), *la, *lb)
+        t = (shard.reduce_partial(t, mesh) if sharded
+             else shard.wrap(t, mesh, Replicate()))
+        total = t if total is None else total + t
+    return total
+
+
+def _check_placed_alike(a_leaves: list, b_leaves: list) -> None:
+    """Lockstep over shards pairs the right elements only when both trees'
+    leaves are ``DTensor``s placed alike: reject anything else loudly."""
+    for i, (a, b) in enumerate(zip(a_leaves, b_leaves)):
+        if not (shard.is_dtensor(a) and shard.is_dtensor(b)
+                and a.placements == b.placements):
+            raise ValueError(
+                f"sharded lockstep: leaf {i} placed as "
+                f"{getattr(a, 'placements', 'plain')} and "
+                f"{getattr(b, 'placements', 'plain')}")
 
 
 # ---------------------------------------------------------------------------
@@ -222,10 +264,14 @@ def tree_ef_update(u_tree: PyTree, d_tree: PyTree, s) -> PyTree:
     place (one output buffer); on the CPU the same lockstep chunks as
     ``tree_fused_stats``, concatenated, through the plain version and
     sliced back into leaves. Output leaves are f32 in u's shapes. Not
-    differentiable.
+    differentiable. ``DTensor`` leaves (``u`` and ``d`` placed alike)
+    run on this rank's shards and come back placed as ``u``.
     """
     u_leaves, d_leaves = _check_lockstep(u_tree, d_tree)
     _, treedef = tree_flatten(u_tree)
+    if any(shard.is_dtensor(l) for l in u_leaves + d_leaves):
+        return tree_unflatten(treedef, _sharded_ef_update(u_leaves, d_leaves,
+                                                          s))
     ru = [_ravel_f32(l) for l in u_leaves]
     rd = [_ravel_f32(l) for l in d_leaves]
     if _on_card(ru):
@@ -246,6 +292,18 @@ def tree_ef_update(u_tree: PyTree, d_tree: PyTree, s) -> PyTree:
         for ps, l in zip(pieces, u_leaves)
     ]
     return tree_unflatten(treedef, new_leaves)
+
+
+def _sharded_ef_update(u_leaves: list, d_leaves: list, s) -> list:
+    """``tree_ef_update`` on this rank's shards (one B2 launch per table
+    on the card), each new leaf placed as its ``u`` leaf."""
+    from torch.distributed.tensor import DTensor
+    _check_placed_alike(u_leaves, d_leaves)
+    new = tree_ef_update([u.to_local() for u in u_leaves],
+                         [d.to_local() for d in d_leaves], shard.local(s))
+    return [DTensor.from_local(n, u.device_mesh, u.placements,
+                               run_check=False)
+            for n, u in zip(new, u_leaves)]
 
 
 # ---------------------------------------------------------------------------
@@ -303,7 +361,10 @@ def ssd_chunked(xdt: torch.Tensor, dA: torch.Tensor, Bc: torch.Tensor,
     """Same contract as ``models.ssm.ssd_scan``, with the intra-chunk math in
     kernel B4. xdt (b,s,h,p); dA (b,s,h); B, C (b,s,n); ``s`` must divide
     by ``min(chunk, s)``. Returns (y (b,s,h,p), final state (b,h,p,n)) in
-    xdt's dtype; the kernel and the recurrence run in f32."""
+    xdt's dtype; the kernel and the recurrence run in f32. ``DTensor``
+    inputs run replicated, every head on every rank (``sharded_ssd``)."""
+    if any(shard.is_dtensor(t) for t in (xdt, dA, Bc, Cc, h0)):
+        return sharded_ssd(ssd_chunked, xdt, dA, Bc, Cc, chunk, h0)
     b, s, h, pdim = xdt.shape
     n = Bc.shape[-1]
     Q = min(chunk, s)
@@ -332,6 +393,26 @@ def ssd_chunked(xdt: torch.Tensor, dA: torch.Tensor, Bc: torch.Tensor,
     y = y_diag + y_off                                           # (b,h,nc,Q,P)
     y = torch.movedim(y, 1, 3).reshape(b, s, h, pdim)
     return y.to(xdt.dtype), carry.to(xdt.dtype)
+
+
+def sharded_ssd(fn, xdt, dA, Bc, Cc, chunk: int, h0):
+    """An SSD scan ``fn`` (``ssd_chunked``, or ``models.ssm.ssd_scan``) on
+    ``DTensor`` inputs: every input replicated and every rank scanning
+    every head on its local copy, the outputs replicated. The scan's
+    inputs arrive replicated anyway: ``in_proj``'s (z, xBC, dt) split
+    crosses its sharded axis. Differentiable to any order where ``fn``
+    is."""
+    from torch.distributed.tensor import Replicate
+    mesh = next(t.device_mesh for t in (xdt, dA, Bc, Cc, h0)
+                if shard.is_dtensor(t))
+
+    def lay(t):
+        return None if t is None else shard.local_shard(shard.replicate(t))
+
+    xdt, dA, Bc, Cc, h0 = shard.enter((xdt, dA, Bc, Cc, h0), mesh)
+    y, final = fn(lay(xdt), lay(dA), lay(Bc), lay(Cc), chunk, lay(h0))
+    return shard.wrap(y, mesh, Replicate()), shard.wrap(final, mesh,
+                                                        Replicate())
 
 
 class _SSDChunkedAD(torch.autograd.Function):

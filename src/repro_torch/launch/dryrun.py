@@ -25,9 +25,12 @@ Per pair the run writes ``experiments/dryrun_torch/<arch>__<shape>__<mesh>
 ops with the most bytes. Failures raise, as in the reference; nothing is
 skipped. A host read of a tensor's value inside an entry raises under the
 fake mode: in the port's own code that is a fault to repair, not a pair to
-skip. A mesh with a ``model`` axis larger than 1 (the production mesh
-included) and ``--multi-pod`` raise ``NotImplementedError`` until the
-parameter sharding rules land (``ROADMAP.md`` Queue A item 2).
+skip. On a mesh whose ``model`` axis is larger than 1 (the production
+meshes, ``--mesh d,m`` with m > 1, ``--multi-pod``'s (2, 16, 16)) the
+entry runs tensor parallel, as rank 0 of the fake process group: its
+parameters, EF and caches are ``DTensor`` shards (``launch/specs.py``),
+the per-device figures are rank 0's local shards and ops, and the
+collectives are DTensor's functional ones, counted by the analyzer.
 """
 from __future__ import annotations
 
@@ -51,8 +54,11 @@ from repro_torch.utils import roofline as rl
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "experiments", "dryrun_torch")
 
-# the reference's production mesh: (data, model) = (16, 16)
+# the reference's production meshes: (data, model) = (16, 16), and two
+# such pods, (pod, data, model) = (2, 16, 16)
 PRODUCTION_MESH = (16, 16)
+MULTI_POD_MESH = (2, 16, 16)
+MESH_AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
 
 
 def tokens_for(arch: str, shape_name: str) -> float:
@@ -66,10 +72,11 @@ def tokens_for(arch: str, shape_name: str) -> float:
 
 @contextlib.contextmanager
 def fake_mesh(mesh_shape: Tuple[int, ...], device="cpu") -> Iterator:
-    """A ``("data", "model")`` DeviceMesh of ``mesh_shape`` over a fake
-    process group, this process as rank 0: collectives on it move nothing.
-    It makes the default process group and destroys it on exit, so none
-    may exist before."""
+    """A ``("data", "model")`` DeviceMesh of ``mesh_shape`` (``("pod",
+    "data", "model")`` for three axes) over a fake process group, this
+    process as rank 0: collectives on it move nothing. It makes the
+    default process group and destroys it on exit, so none may exist
+    before."""
     from torch.distributed.device_mesh import init_device_mesh
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
@@ -82,9 +89,22 @@ def fake_mesh(mesh_shape: Tuple[int, ...], device="cpu") -> Iterator:
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
     try:
         yield init_device_mesh(torch.device(device).type, tuple(mesh_shape),
-                               mesh_dim_names=("data", "model"))
+                               mesh_dim_names=MESH_AXES[len(mesh_shape)])
     finally:
         dist.destroy_process_group()
+
+
+def parameter_shards(arg) -> Tuple[int, int]:
+    """(elements, bytes) of the parameters an entry's first argument holds
+    on this device: a serving entry's params, or a round's
+    ``state.params``; each ``DTensor`` leaf by its local shard."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models import shard
+    params = arg.params if hasattr(arg, "params") else arg
+    with torch.no_grad():
+        local = [shard.local(t) for t in tree_leaves(params)]
+    return (sum(t.numel() for t in local),
+            sum(t.numel() * t.element_size() for t in local))
 
 
 def _check_device(device: torch.device) -> None:
@@ -102,11 +122,10 @@ def run_pair(arch: str, shape_name: str, multi_pod: bool = False,
              device="cuda") -> Optional[dict]:
     """Dry-runs one pair and returns its result (None for a documented
     skip)."""
-    if multi_pod:
-        raise NotImplementedError(f"--multi-pod {specs_lib.TP_PENDING}")
     device = torch.device(device)
     _check_device(device)
-    mesh_shape = tuple(mesh_shape or PRODUCTION_MESH)
+    mesh_shape = tuple(mesh_shape or (MULTI_POD_MESH if multi_pod
+                                      else PRODUCTION_MESH))
     mesh_name = "x".join(map(str, mesh_shape))
     chips = 1
     for d in mesh_shape:
@@ -121,6 +140,7 @@ def run_pair(arch: str, shape_name: str, multi_pod: bool = False,
         t0 = time.perf_counter()
         with FakeTensorMode():
             fake_args = specs_lib.materialize(args, device)
+            param_count, param_bytes = parameter_shards(fake_args[0])
             trace = hlo_analyzer.record(entry, *fake_args)
         trace_s = time.perf_counter() - t0
     shape = INPUT_SHAPES[shape_name]
@@ -140,6 +160,10 @@ def run_pair(arch: str, shape_name: str, multi_pod: bool = False,
         "ops_dispatched": trace.dispatched,
         # one process's live bytes: per device (see launch/specs.py)
         "memory_per_dev": dict(trace.memory),
+        # the parameters this device holds: its shards under tensor
+        # parallelism (unrounded, unlike the live bytes' blocks)
+        "parameter_count": param_count,
+        "parameter_bytes": param_bytes,
         "roofline": roof.as_dict(),
         "top_ops_by_bytes": hlo_analyzer.top_ops(trace, 20),
     }
@@ -148,6 +172,7 @@ def run_pair(arch: str, shape_name: str, multi_pod: bool = False,
         peak_gib = result["memory_per_dev"]["peak_bytes"] / 2**30
         print(f"OK   {arch} x {shape_name} [{mesh_name}, {device.type}]  "
               f"trace {trace_s:.0f}s ({trace.dispatched} ops)  "
+              f"params/dev {param_count:,} ({param_bytes:,} B)  "
               f"args/dev {args_gib:.2f} GiB peak/dev {peak_gib:.2f} GiB  "
               f"dominant={roof.dominant}  "
               f"C/M/X = {roof.compute_s:.3e}/{roof.memory_s:.3e}/"
@@ -173,15 +198,16 @@ def main(argv=None) -> None:
                     help='JSON knobs, e.g. \'{"fused_decode": true}\'')
     ap.add_argument("--tag", type=str, default="")
     ap.add_argument("--mesh", type=str, default="",
-                    help="mesh shape (data,model), e.g. 4,1; the default is "
-                         "the production 16,16")
+                    help="mesh shape (data,model) or (pod,data,model), e.g. "
+                         "4,1; the default is the production 16,16 "
+                         "(2,16,16 with --multi-pod)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default: the card's path) or cpu (the plain "
                          "versions)")
     args = ap.parse_args(argv)
     variant = json.loads(args.variant) if args.variant else None
     mesh_shape = (tuple(int(x) for x in args.mesh.split(",")) if args.mesh
-                  else PRODUCTION_MESH)
+                  else MULTI_POD_MESH if args.multi_pod else PRODUCTION_MESH)
 
     if args.all:
         pairs = [(a, s) for a in ARCH_IDS for s in INPUT_SHAPES]

@@ -19,22 +19,26 @@ Entry kinds per input shape (``configs.base.INPUT_SHAPES``):
 
 Where the port differs from the reference:
 
-* In ``client_parallel='vmap'`` the port's round loops over all
-  ``num_clients_for(mesh)`` clients in one process, where the reference's
-  GSPMD program splits them across the devices; a prefill or decode runs
-  its whole batch in one process too. So an entry's per-device figures are
-  that one process's, and on an (n, 1) mesh they are the work of n
-  reference devices. Under ``'shard_map'`` each rank holds its own
-  clients' EF rows and batches, as in the reference, and the specs are
-  rank 0's.
+* The data and pod axes hold plain local tensors: each rank holds its own
+  rows. A prefill or decode entry on a mesh with ``data · pod > 1`` takes
+  this rank's ``B / (data · pod)`` rows when they divide (the reference's
+  ``_bspec``), else the whole batch. In ``client_parallel='vmap'`` the
+  port's round loops over all ``num_clients_for(mesh)`` clients in one
+  process, where the reference's GSPMD program splits them across the
+  devices; under ``'shard_map'`` each rank holds its own clients' EF rows
+  and batches, as in the reference. The specs are rank 0's.
+* The ``model`` axis: on a mesh whose ``model`` axis is larger than 1 every
+  parameter, EF and cache leaf is a ``DTensor`` on the 1-D ``model``
+  sub-mesh, placed by the reference's rules (``models.params``, and
+  ``cache_specs`` for the caches); a spec's ``shape`` is the whole leaf's
+  and ``materialize`` builds this rank's shard. Activations enter an entry
+  replicated on ``model`` and its outputs leave as plain tensors, except
+  the decode cache, which stays placed for the next step. The variants
+  ``act_shard`` (``models.shard``'s pins) and ``no_qk_hd_shard`` (q/k/v
+  replicated where their heads do not divide) are the reference's.
 * The round takes its key as an integer seed and the decode step its
   position as an integer (the port's serving loop computes the ring
   buffer's slot on the host); both are plain ``int`` arguments.
-* A mesh whose ``model`` axis is larger than 1 (the production meshes
-  included) and the variants ``act_shard`` and ``no_qk_hd_shard`` need the
-  parameter sharding rules with tensor parallelism, which the port does not
-  have yet (``ROADMAP.md`` Queue A item 2): they raise
-  ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -44,16 +48,21 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.configs.base import (CompressorConfig, FLConfig, INPUT_SHAPES,
                                       ModelConfig, ShapeConfig, get_config)
 from repro_torch.configs.run import RunConfig
 from repro_torch.core.strategy import make_strategy
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import (tree_flatten, tree_leaves_with_path,
+                                   tree_map, tree_unflatten)
 from repro_torch.fl.round import FLState, build_fl_round
+from repro_torch.fl.sharding import param_placements, tp_mesh
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.train import num_micro_for
 from repro_torch.models.build import build_model, syn_loss_fn, syn_spec_for
+from repro_torch.models import params as params_lib
+from repro_torch.models import shard
 from repro_torch.models.encdec import EncDec
 
 PyTree = Any
@@ -63,57 +72,143 @@ LONG_CTX_WINDOW = 8192
 # archs whose defining op is full cross-attention at short length: skip 500k
 LONG_CTX_SKIP = ("seamless-m4t-medium",)
 
-# what the port cannot mean yet, and where the work to lift it is queued
-TP_PENDING = ("needs the parameter sharding rules with tensor parallelism "
-              "(ROADMAP.md Queue A item 2)")
-
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 @dataclass(frozen=True)
 class TensorSpec:
-    """A tensor's shape and dtype, nothing allocated."""
+    """A tensor's shape and dtype, nothing allocated. With ``mesh`` (a 1-D
+    ``model`` sub-mesh) the tensor is a ``DTensor`` placed on it as
+    ``placement``, and ``shape`` is the whole tensor's."""
 
     shape: Tuple[int, ...]
     dtype: torch.dtype
+    placement: Any = None
+    mesh: Any = dataclasses.field(default=None, compare=False)
+
+    @property
+    def local_shape(self) -> Tuple[int, ...]:
+        """This rank's shard's shape."""
+        shape = list(self.shape)
+        if isinstance(self.placement, Shard):
+            shape[self.placement.dim] //= self.mesh.size()
+        return tuple(shape)
 
 
-def spec_of(t: torch.Tensor) -> TensorSpec:
-    return TensorSpec(tuple(t.shape), t.dtype)
+def spec_of(t: torch.Tensor, placement=None, mesh=None) -> TensorSpec:
+    return TensorSpec(tuple(t.shape), t.dtype, placement if mesh is not None
+                      else None, mesh)
+
+
+def _build(s: TensorSpec, device) -> torch.Tensor:
+    local = torch.empty(s.local_shape, dtype=s.dtype, device=device)
+    if s.mesh is None:
+        return local
+    # shards are even (the rules shard only dimensions that divide)
+    return DTensor.from_local(local, s.mesh, [s.placement], run_check=False)
 
 
 def materialize(tree: PyTree, device) -> PyTree:
     """The tensors ``tree``'s specs describe, uninitialized on ``device``
-    (inside a ``FakeTensorMode``: fake, holding no memory); other leaves
-    as they are."""
-    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
-                                          device=device)
+    (inside a ``FakeTensorMode``: fake, holding no memory), each placed
+    spec this rank's shard wrapped as a ``DTensor``; other leaves as they
+    are."""
+    return tree_map(lambda s: _build(s, device)
                     if isinstance(s, TensorSpec) else s, tree)
 
 
-def check_mesh(mesh) -> None:
-    """Raises ``NotImplementedError`` for a mesh with a ``model`` axis
-    larger than 1."""
-    model = mesh_lib.axis_size(mesh, "model")
-    if model > 1:
-        raise NotImplementedError(
-            f"a mesh with a model axis of {model} {TP_PENDING}")
-
-
-def param_specs(model, mesh) -> PyTree:
-    """Specs of ``model``'s params, from its init run under a fake mode."""
-    check_mesh(mesh)
+def param_specs(model, mesh, client_axis=None) -> PyTree:
+    """Specs of ``model``'s params, from its init run under a fake mode,
+    placed on the ``model`` sub-mesh by the rules."""
     with FakeTensorMode():
         params = model.init(torch.Generator().manual_seed(0))
-    return tree_map(spec_of, params)
+    mm = tp_mesh(mesh)
+    return tree_map(lambda t, p: spec_of(t, p, mm), params,
+                    param_placements(params, mesh, client_axis))
+
+
+# ---------------------------------------------------------------------------
+# cache sharding rules (path-based, mirrors the models' init_cache structures)
+# ---------------------------------------------------------------------------
+
+
+def _cache_spec(name: str, shape: Tuple[int, ...], msize: int
+                ) -> params_lib.PartitionSpec:
+    """The reference's ``model`` entries of a cache leaf's spec, by its
+    field name: kv heads (else head_dim) of ``k``/``v``; the channels of
+    ``conv_buf``; the heads of an SSM ``state``; the width of an RG-LRU
+    ``h``. The batch axis is this rank's rows (module docstring)."""
+    spec = [None] * len(shape)
+    if name in ("k", "v"):                 # (L, B, len, KV, hd)
+        off = len(shape) - 4
+        if _div(shape[off + 2], msize):
+            spec[off + 2] = "model"
+        elif _div(shape[off + 3], msize):
+            spec[off + 3] = "model"
+    elif name in ("conv_buf", "h"):        # (..., B, width-1, C), (..., B, W)
+        if _div(shape[-1], msize):
+            spec[-1] = "model"
+    elif name == "state":                  # (..., B, H, P, N)
+        off = len(shape) - 4
+        if _div(shape[off + 1], msize):
+            spec[off + 1] = "model"
+    return params_lib.PartitionSpec(*spec)
+
+
+def cache_placements(cache: PyTree, msize: int) -> PyTree:
+    """Each cache leaf's placement on a ``model`` sub-mesh of ``msize``."""
+    pairs = tree_leaves_with_path(cache)
+    out = [params_lib.model_placement(_cache_spec(
+        str(path[-1]) if path else "", tuple(t.shape), msize))
+        for path, t in pairs]
+    return tree_unflatten(tree_flatten(cache)[1], out)
 
 
 def cache_specs(cfg: ModelConfig, cache_shapes: PyTree, mesh) -> PyTree:
-    """Specs of a decode cache: a batch axis split over 'data' (+'pod') is
-    this process's whole batch (see the module docstring), and heads or
-    width over 'model' are not supported yet."""
-    check_mesh(mesh)
-    return tree_map(spec_of, cache_shapes)
+    """Specs of a decode cache: the batch axis is this rank's rows; heads or
+    width placed on the ``model`` sub-mesh by the reference's cache
+    rules."""
+    mm = tp_mesh(mesh)
+    return tree_map(lambda t, p: spec_of(t, p, mm), cache_shapes,
+                    cache_placements(cache_shapes,
+                                     mesh_lib.axis_size(mesh, "model")))
+
+
+def place_cache(cache: PyTree, mm) -> PyTree:
+    """A cache an entry made, redistributed on the ``model`` sub-mesh
+    ``mm`` to its ``cache_placements`` (as it is without one)."""
+    if mm is None:
+        return cache
+    return tree_map(lambda t, p: t.redistribute(mm, [p])
+                    if isinstance(t, DTensor) else shard.place(t, mm, p),
+                    cache, cache_placements(cache, mm.size()))
+
+
+def _div(n: int, m: int) -> bool:
+    return m > 0 and n % m == 0
+
+
+def _rows(mesh, n: int) -> int:
+    """This rank's rows of a batch of ``n`` split over 'data' (+'pod'):
+    ``n / (data · pod)`` when they divide, else all ``n``."""
+    dsize = mesh_lib.axis_size(mesh, "data") * mesh_lib.axis_size(mesh, "pod")
+    return n // dsize if _div(n, dsize) else n
+
+
+def _serve(mesh, fn: Callable) -> Callable:
+    """A serving entry on ``mesh``: activations enter replicated on the
+    ``model`` sub-mesh, the logits leave plain and the cache leaves placed
+    by ``cache_placements`` (all as they are without tensor
+    parallelism). The sub-mesh is taken here, not in the entry: slicing a
+    mesh runs ops a dry run would trace."""
+    mm = tp_mesh(mesh)
+
+    def entry(params, *args):
+        with shard.context(mm):
+            logits, cache, *rest = fn(params, *shard.enter(args, mm))
+        return (shard.leave(logits), place_cache(cache, mm), *rest)
+
+    return entry
 
 
 # ---------------------------------------------------------------------------
@@ -132,13 +227,6 @@ def serving_config(cfg: ModelConfig, shape: ShapeConfig) -> Optional[ModelConfig
             return cfg                       # hybrid local attention
         return cfg.replace(attn_window=LONG_CTX_WINDOW)   # SWA serving variant
     return cfg
-
-
-def _batch_specs(cfg: ModelConfig, mesh, shapes: Dict[str, Tuple],
-                 dtypes) -> Dict[str, TensorSpec]:
-    """Specs of batch inputs: ``shapes[k]`` in ``dtypes[k]``."""
-    check_mesh(mesh)
-    return {k: TensorSpec(tuple(shp), dtypes[k]) for k, shp in shapes.items()}
 
 
 def _extras(model, cfg: ModelConfig, lead: Tuple[int, ...]
@@ -174,9 +262,11 @@ def make_train_entry(cfg: ModelConfig, shape: ShapeConfig, mesh,
     ``launch.train.num_micro_for``; the defaults are the reference's: K =
     1, local lr 0.01, 3SFC with 16 synthetic positions and rank-8 labels.
     The round is called directly, without donation, as the reference's dry
-    run lowers it.
+    run lowers it; ``entry(state, batch, key, syn0=None)`` passes the
+    round's ``syn0`` seam through. With tensor parallelism the params and the EF are
+    placed on the ``model`` sub-mesh (``fl.sharding``) and the round runs
+    its clients' math on the shards.
     """
-    check_mesh(mesh)
     num_clients = mesh_lib.num_clients_for(mesh)
     per_client = max(1, shape.global_batch // num_clients)
     fl = fl or FLConfig(num_clients=num_clients, local_steps=1, local_lr=0.01,
@@ -198,15 +288,18 @@ def make_train_entry(cfg: ModelConfig, shape: ShapeConfig, mesh,
     rows = num_clients if client_parallel == "vmap" else 1
     K, B, S = fl.local_steps, per_client, shape.seq_len
     pspecs = param_specs(model, mesh)
-    ef = tree_map(lambda s: TensorSpec((rows, *s.shape), ef_dtype), pspecs)
+    ef = tree_map(lambda s: TensorSpec(
+        (rows, *s.shape), ef_dtype, None if s.placement is None
+        else Shard(s.placement.dim + 1) if isinstance(s.placement, Shard)
+        else s.placement, s.mesh), pspecs)
     state = FLState(params=pspecs, ef=ef, round=0)
     batch = {"tokens": TensorSpec((rows, K, B, S), torch.int32)}
     for k, (shp, dt) in _extras(model, cfg, (rows, K, B)).items():
         batch[k] = TensorSpec(shp, dt)
     key = 0
 
-    def entry(state, batch, key):
-        return round_fn(state, batch, key)
+    def entry(state, batch, key, syn0=None):
+        return round_fn(state, batch, key, syn0=syn0)
 
     return entry, (state, batch, key)
 
@@ -214,31 +307,25 @@ def make_train_entry(cfg: ModelConfig, shape: ShapeConfig, mesh,
 def make_prefill_entry(cfg: ModelConfig, shape: ShapeConfig, mesh
                        ) -> Tuple[Callable, Tuple]:
     model = build_model(cfg)
-    B, S = shape.global_batch, shape.seq_len
+    B, S = _rows(mesh, shape.global_batch), shape.seq_len
     tokens = TensorSpec((B, S), torch.int32)
     pspecs = param_specs(model, mesh)
     extras = _extras(model, cfg, (B,))
 
     if isinstance(model, EncDec):
         frames = TensorSpec(*extras["frames"])
-
-        def entry(params, frames, tokens):
-            return model.prefill(params, frames, tokens, cache_len=S)
-
+        entry = _serve(mesh, lambda params, frames, tokens: model.prefill(
+            params, frames, tokens, cache_len=S))
         return entry, (pspecs, frames, tokens)
 
     if extras:
         prefix = TensorSpec(*extras["prefix_embeds"])
-
-        def entry(params, prefix, tokens):
-            return model.prefill(params, tokens, cache_len=S,
-                                 prefix_embeds=prefix)
-
+        entry = _serve(mesh, lambda params, prefix, tokens: model.prefill(
+            params, tokens, cache_len=S, prefix_embeds=prefix))
         return entry, (pspecs, prefix, tokens)
 
-    def entry(params, tokens):
-        return model.prefill(params, tokens, cache_len=S)
-
+    entry = _serve(mesh, lambda params, tokens: model.prefill(
+        params, tokens, cache_len=S))
     return entry, (pspecs, tokens)
 
 
@@ -247,7 +334,7 @@ def make_decode_entry(cfg: ModelConfig, shape: ShapeConfig, mesh
     """One-token decode against a seq_len-deep cache, at its last
     position."""
     model = build_model(cfg)
-    B, S = shape.global_batch, shape.seq_len
+    B, S = _rows(mesh, shape.global_batch), shape.seq_len
     pspecs = param_specs(model, mesh)
     with FakeTensorMode():
         if isinstance(model, EncDec):
@@ -257,10 +344,8 @@ def make_decode_entry(cfg: ModelConfig, shape: ShapeConfig, mesh
     cspecs = cache_specs(cfg, cache, mesh)
     token = TensorSpec((B,), torch.int32)
     t = S - 1
-
-    def entry(params, cache, token, t):
-        return model.decode_step(params, cache, token, t)
-
+    entry = _serve(mesh, lambda params, cache, token, t: model.decode_step(
+        params, cache, token, t))
     return entry, (pspecs, cspecs, token, t)
 
 
@@ -270,21 +355,24 @@ def make_entry(arch: str, shape_name: str, mesh, fl: Optional[FLConfig] = None,
     """(entry_fn, args) for one (arch x input-shape) pair; None if skipped.
 
     ``variant``: {"fused_decode": bool, "ef_dtype": "bfloat16",
-    "param_dtype": "bfloat16", "local_steps": int,
-    "client_parallel": "vmap" | "shard_map"}; "act_shard" and
-    "no_qk_hd_shard" raise ``NotImplementedError`` (module docstring).
+    "param_dtype": "bfloat16", "act_shard": bool, "no_qk_hd_shard": bool,
+    "local_steps": int, "client_parallel": "vmap" | "shard_map"}.
+    ``act_shard`` turns ``models.shard``'s pins on for ``mesh`` and
+    ``no_qk_hd_shard`` turns the q/k/v head_dim fallback off, both
+    process-wide as in the reference (``shard.enable(False)`` and
+    ``params.set_qk_hd_fallback(True)`` undo them).
     """
     variant = variant or {}
-    for knob in ("act_shard", "no_qk_hd_shard"):
-        if variant.get(knob):
-            raise NotImplementedError(f"the {knob!r} variant {TP_PENDING}")
-    check_mesh(mesh)
     shape = INPUT_SHAPES[shape_name]
     cfg = serving_config(get_config(arch), shape)
     if cfg is None:
         return None
     if variant.get("param_dtype"):
         cfg = cfg.replace(param_dtype=variant["param_dtype"])
+    if variant.get("act_shard"):
+        shard.enable(True, mesh)
+    if variant.get("no_qk_hd_shard"):
+        params_lib.set_qk_hd_fallback(False)
     if shape.mode == "train":
         fl2 = fl
         if variant.get("local_steps"):

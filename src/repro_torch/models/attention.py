@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import params as P_
+from repro_torch.models import shard
 from repro_torch.models.rope import apply_rope
 
 NEG_INF = -1e30
@@ -49,17 +50,62 @@ def attn_init(gen: torch.Generator, d: int, num_heads: int, num_kv: int,
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``einsum('...sd,dhk->...shk', x, w)`` in x's dtype."""
+    """``einsum('...sd,dhk->...shk', x, w)`` in x's dtype. A ``DTensor``
+    ``w`` projects on each rank's slice (``_proj_tp``)."""
+    if shard.is_dtensor(w):
+        return _proj_tp(x, w)
     d, h, k = w.shape
     return (x @ w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
 
 
 def _out(o: torch.Tensor, wo: torch.Tensor, dtype=None) -> torch.Tensor:
     """``einsum('...hk,hkd->...d', o, wo.astype(dtype))``, o promoted with
-    ``dtype`` (o's own by default) as JAX promotes it."""
+    ``dtype`` (o's own by default) as JAX promotes it. A ``DTensor``
+    ``wo`` contracts on each rank's slice (``_out_tp``)."""
+    if shard.is_dtensor(wo):
+        return _out_tp(o, wo, dtype)
     dt = torch.promote_types(o.dtype, dtype or o.dtype)
     h, k, d = wo.shape
     return o.to(dt).flatten(-2) @ wo.to(dt).reshape(h * k, d)
+
+
+def _proj_tp(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``_proj`` with ``w`` placed on the model sub-mesh: the replicated x
+    times this rank's slice of w (heads or head_dim), the result placed
+    as that slice (its x gradient a partial sum); a replicated w gives a
+    replicated result."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = w.device_mesh
+    x = shard.enter(x, mesh)
+    pw = w.placements[0]
+    sharded = isinstance(pw, Shard)
+    xl = shard.local_shard(shard.replicate(x), partial_grad=sharded)
+    y = _proj(xl, shard.local_shard(w))
+    place = Shard(y.ndim - 3 + pw.dim) if sharded else Replicate()
+    return shard.wrap(y, mesh, place)
+
+
+def _out_tp(o: torch.Tensor, wo: torch.Tensor, dtype) -> torch.Tensor:
+    """``_out`` with ``wo`` placed on the model sub-mesh: this rank's heads
+    (or head_dim slice) of o against its slice of wo, the partial products
+    summed by one all-reduce; a replicated wo contracts whole."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = wo.device_mesh
+    o = shard.enter(o, mesh)
+    pw = wo.placements[0]
+    wl = shard.local_shard(wo)
+    if not isinstance(pw, Shard):
+        y = _out(shard.local_shard(shard.replicate(o)), wl, dtype)
+        return shard.wrap(y, mesh, Replicate())
+    dim = o.ndim - 2 + pw.dim                  # heads (0) or head_dim (1)
+    if o.placements[0] == Shard(dim):
+        ol = shard.local_shard(o)
+    else:
+        n = wl.shape[pw.dim]
+        lo = mesh.get_local_rank() * n
+        ol = shard.local_shard(shard.replicate(o), partial_grad=True)
+        ol = ol.narrow(dim, lo, n)
+    return shard.reduce_partial(_out(ol, wl, dtype), mesh)
 
 
 def _project_qkv(p: Dict, x: torch.Tensor,
@@ -69,7 +115,15 @@ def _project_qkv(p: Dict, x: torch.Tensor,
     if "bq" in p:
         dt = x.dtype
         q, k, v = q + p["bq"].to(dt), k + p["bk"].to(dt), v + p["bv"].to(dt)
-    return q, k, v
+    # opt-in pins (models.shard): heads on 'model', head_dim where the
+    # heads do not divide it
+    return tuple(_pin_heads(t) for t in (q, k, v))
+
+
+def _pin_heads(t: torch.Tensor) -> torch.Tensor:
+    if t.shape[-2] % (shard.model_axis_size() or 1) == 0:
+        return shard.heads(t)
+    return shard.heads(t, axis=-1)
 
 
 def _scale(head_dim: int) -> float:
@@ -80,7 +134,10 @@ def _scale(head_dim: int) -> float:
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           mask: Optional[torch.Tensor]) -> torch.Tensor:
     """q (.., Sq, H, hd), k/v (.., Sk, KV, hd): grouped attention, f32
-    softmax."""
+    softmax. Under tensor parallelism (``DTensor`` inputs) it runs on each
+    rank's local tensors (``_sdpa_tp``)."""
+    if shard.is_dtensor(q) or shard.is_dtensor(k):
+        return _sdpa_tp(q, k, v, mask)
     H, KV = q.shape[-2], k.shape[-2]
     G = H // KV
     lead = q.shape[:-3]
@@ -93,6 +150,42 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("...grqs,...sgk->...qgrk", probs, v)
     return out.reshape(*lead, out.shape[-4], H, out.shape[-1])
+
+
+def _sdpa_tp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """``_sdpa`` on ``DTensor``s, each rank on its own query heads where q
+    arrives sharded on heads: with k and v sharded on heads too (the KV
+    heads divide the model axis), or replicated and cut to the KV heads
+    its query heads read (a whole number of groups per rank, or one KV
+    head); the output stays sharded on heads, with no collective. Any
+    other layout (the head_dim fallback) is replicated first and attends
+    whole on every rank."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = (q if shard.is_dtensor(q) else k).device_mesh
+    q, k, v = shard.enter((q, k, v), mesh)
+    H, KV = q.shape[-2], k.shape[-2]
+    G, m = H // KV, mesh.size()
+    heads = Shard(q.ndim - 2)
+    local_mask = None if mask is None else shard.local(mask)
+    if q.placements[0] == heads:
+        if k.placements[0] == v.placements[0] == Shard(k.ndim - 2):
+            out = _sdpa(shard.local_shard(q), shard.local_shard(k),
+                        shard.local_shard(v), local_mask)
+            return shard.like(out.contiguous(), q)
+        hl = H // m
+        if KV == 1 or hl % G == 0:
+            lo = mesh.get_local_rank() * hl // G if KV > 1 else 0
+            n = max(hl // G, 1)
+            kl, vl = (shard.local_shard(shard.replicate(t), partial_grad=True)
+                      [..., lo:lo + n, :] for t in (k, v))
+            out = _sdpa(shard.local_shard(q), kl, vl, local_mask)
+            return shard.like(out.contiguous(), q)
+    # every rank attends whole over whole inputs: the output, and the
+    # inputs' gradients, are replicated
+    out = _sdpa(*(shard.local_shard(shard.replicate(t)) for t in (q, k, v)),
+                local_mask)
+    return shard.wrap(out.contiguous(), mesh, Replicate())
 
 
 def causal_mask(sq: int, sk: int, window: int = 0, offset: int = 0,
@@ -178,6 +271,21 @@ def prefill_cache(p: Dict, x: torch.Tensor, cache_len: int, *,
     return y, KVCache(kc, vc, pc)
 
 
+def _write_slot(buf: torch.Tensor, slot: torch.Tensor, val: torch.Tensor
+                ) -> torch.Tensor:
+    """``buf.index_copy(1, slot, val)``; a placed cache is written on each
+    rank's shard, ``val`` laid out as the cache first (DTensor has no
+    sharding rule for ``index_copy`` in every release)."""
+    if not shard.is_dtensor(buf):
+        return buf.index_copy(1, slot, val)
+    mesh = buf.device_mesh
+    val = shard.enter(val, mesh)
+    if val.placements != buf.placements:
+        val = val.redistribute(mesh, buf.placements)
+    return shard.like(shard.local(buf).index_copy(1, slot, shard.local(val)),
+                      buf)
+
+
 def decode_attention(p: Dict, x_t: torch.Tensor, cache: KVCache, t, *,
                      theta: float, window: int = 0
                      ) -> Tuple[torch.Tensor, KVCache]:
@@ -192,9 +300,9 @@ def decode_attention(p: Dict, x_t: torch.Tensor, cache: KVCache, t, *,
     q = apply_rope(q, tpos, theta)[:, 0]
     k = apply_rope(k, tpos, theta)
     slot = torch.tensor([t % cache_len], device=x_t.device)
-    kc = cache.k.index_copy(1, slot, k.to(cache.k.dtype))
-    vc = cache.v.index_copy(1, slot, v.to(cache.v.dtype))
-    pc = cache.pos.index_copy(1, slot, tpos.expand(B, 1).contiguous())
+    kc = _write_slot(cache.k, slot, k.to(cache.k.dtype))
+    vc = _write_slot(cache.v, slot, v.to(cache.v.dtype))
+    pc = _write_slot(cache.pos, slot, tpos.expand(B, 1).contiguous())
     # grouped attention over the whole ring buffer, masked by validity
     # and the window
     valid = (pc >= 0) & (pc <= t)

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import params as P_
+from repro_torch.models import shard
 
 # ---------------------------------------------------------------------------
 # RMSNorm
@@ -46,6 +47,8 @@ def embed(p: Dict, tokens: torch.Tensor, dtype=torch.bfloat16
           ) -> torch.Tensor:
     # gather, then cast: the same values as the reference's cast-then-gather
     # without casting the whole table
+    if shard.is_dtensor(p["table"]):
+        return shard.vocab_embedding(p["table"], tokens).to(dtype)
     return F.embedding(tokens.long(), p["table"]).to(dtype)
 
 

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers
 from repro_torch.models import params as P_
+from repro_torch.models import shard
 
 
 class MoEOut(NamedTuple):
@@ -99,6 +100,57 @@ def dispatch_combine(top_w: torch.Tensor, top_e: torch.Tensor, E: int,
             combine[:n].reshape(B, S, E, C))
 
 
+def _experts(p: Dict, xe: torch.Tensor, combine: torch.Tensor
+             ) -> torch.Tensor:
+    """The experts' SwiGLU on their queues, combined back onto tokens."""
+    dt = xe.dtype
+    h = torch.einsum("ebcd,edf->ebcf", xe, p["w_in"].to(dt))
+    g = torch.einsum("ebcd,edf->ebcf", xe, p["w_gate"].to(dt))
+    ye = torch.einsum("ebcf,efd->ebcd", F.silu(g) * h, p["w_out"].to(dt))
+    return torch.einsum("ebcd,bsec->bsd", ye, combine)
+
+
+def _expert_split(p: Dict):
+    """How tensor parallelism splits the expert weights: ``"experts"``
+    (each rank holds whole experts) or ``"ff"`` (each expert's ff slice,
+    the rules' fallback when the experts do not divide the model axis);
+    ``None`` for plain weights or any other layout."""
+    w_in, w_gate, w_out = p["w_in"], p["w_gate"], p["w_out"]
+    if not all(shard.is_dtensor(w) for w in (w_in, w_gate, w_out)):
+        return None
+    from torch.distributed.tensor import Shard
+    dims = tuple(w.placements[0] for w in (w_in, w_gate, w_out))
+    if dims == (Shard(0), Shard(0), Shard(0)):
+        return "experts"
+    if dims == (Shard(2), Shard(2), Shard(1)):
+        return "ff"
+    return None
+
+
+def _experts_local(p: Dict, xe: torch.Tensor, combine: torch.Tensor,
+                   split: str) -> torch.Tensor:
+    """``_experts`` with sharded expert weights, each rank on what it
+    holds: its experts' queues (``"experts"``) or every queue through its
+    ff slice (``"ff"``). Either way a rank's output is a partial sum over
+    experts or ff, reduced by one all-reduce; xe's gradient is the matching
+    partial sum."""
+    from torch.distributed.tensor import Shard
+    mesh = p["w_in"].device_mesh
+    xe, combine = shard.enter((xe, combine), mesh)
+    pinned = split == "experts" and xe.placements[0] == Shard(0)
+    xl = shard.local_shard(shard.replicate(xe) if not pinned else xe,
+                           partial_grad=not pinned)
+    cl = shard.local_shard(shard.replicate(combine), partial_grad=True)
+    if split == "experts":
+        e = p["w_in"].to_local().shape[0]
+        lo = mesh.get_local_rank() * e
+        if xl.shape[0] != e:
+            xl = xl[lo:lo + e]
+        cl = cl[:, :, lo:lo + e]
+    local = {k: shard.local_shard(p[k]) for k in ("w_in", "w_gate", "w_out")}
+    return shard.reduce_partial(_experts(local, xl, cl), mesh)
+
+
 def moe_ffn(p: Dict, x: torch.Tensor, *, experts_per_token: int,
             capacity_factor: float = 1.25, aux_coef: float = 0.01) -> MoEOut:
     """x: (B, S, d) -> (B, S, d)."""
@@ -111,10 +163,12 @@ def moe_ffn(p: Dict, x: torch.Tensor, *, experts_per_token: int,
 
     dt = x.dtype
     xe = torch.einsum("bsd,bsec->ebcd", x, dispatch.to(dt))        # (E,B,C,d)
-    h = torch.einsum("ebcd,edf->ebcf", xe, p["w_in"].to(dt))
-    g = torch.einsum("ebcd,edf->ebcf", xe, p["w_gate"].to(dt))
-    ye = torch.einsum("ebcf,efd->ebcd", F.silu(g) * h, p["w_out"].to(dt))
-    y = torch.einsum("ebcd,bsec->bsd", ye, combine.to(dt))
+    xe = shard.heads(xe, axis=0)       # opt-in pin: experts on 'model'
+    split = _expert_split(p)
+    if split is not None:
+        y = _experts_local(p, xe, combine.to(dt), split)
+    else:
+        y = _experts(p, xe, combine.to(dt))
     if "shared" in p:
         y = y + layers.ffn(p["shared"], x)
     return MoEOut(y, aux_coef * aux)

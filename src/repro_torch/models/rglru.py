@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers
 from repro_torch.models import params as P_
+from repro_torch.models import shard
 
 _C = 8.0
 
@@ -87,7 +88,9 @@ def _lru_coeffs(p: Dict, x: torch.Tensor):
     xf = x.to(torch.float32)
     r = torch.sigmoid(xf @ p["w_gate_a"].to(torch.float32) + p["b_gate_a"])
     i = torch.sigmoid(xf @ p["w_gate_in"].to(torch.float32) + p["b_gate_in"])
-    log_a = _C * r * F.logsigmoid(p["a_param"])                   # log a_t
+    # elementwise on each shard: DTensor has no rule for logsigmoid's
+    # backward
+    log_a = _C * r * shard.pointwise(F.logsigmoid, p["a_param"])  # log a_t
     a = torch.exp(log_a)
     gx = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-9)) * (i * xf)
     return a, gx

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers
 from repro_torch.models import params as P_
+from repro_torch.models import shard
 
 
 class SSMDims(NamedTuple):
@@ -103,8 +104,11 @@ def ssd_scan(xdt: torch.Tensor, dA: torch.Tensor, Bc: torch.Tensor,
 
     Returns (y (b,s,h,p), final_state (b,h,p,n)). The reference's 4-operand
     einsum is contracted as C·Bᵀ, then ⊙L, then ·x, so no (b,c,q,k,h,p)
-    intermediate is built.
+    intermediate is built. ``DTensor`` inputs scan replicated, every head
+    on every rank (``kernels.ops.sharded_ssd``).
     """
+    if any(shard.is_dtensor(t) for t in (xdt, dA, Bc, Cc, h0)):
+        return kops.sharded_ssd(ssd_scan, xdt, dA, Bc, Cc, chunk, h0)
     b, s, h, pdim = xdt.shape
     n = Bc.shape[-1]
     Q = min(chunk, s)

@@ -33,8 +33,18 @@ tensors it records the same ops.
 * **collectives** — each call of a ``torch.distributed`` collective,
   through ``collective_hook``: the hook the round contracts' recorder
   (``repro_torch.analysis.contracts.RoundRecorder``) installs too, so the
-  two accountings cannot drift. ``bytes`` is what this rank puts in (the
-  reference's ``_collective_of``: operand bytes).
+  two accountings cannot drift; and each functional collective
+  (``torch.ops._c10d_functional``, ``functional_collective``), the ones
+  DTensor issues on the ``model`` axis under tensor parallelism, by the
+  same kinds. ``bytes`` is what this rank puts in (the reference's
+  ``_collective_of``: operand bytes).
+
+**Tensor parallelism.** A ``DTensor`` program is counted by its **local**
+ops: the mode sees each DTensor-level op (at global shapes) first and
+returns ``NotImplemented`` for it, so DTensor's dispatch runs it as this
+rank's local ops and collectives, which come back to the mode and are
+counted. Arguments and results count by their local shards, so every
+figure is rank 0's, per device.
 
 **Loops.** A Python loop runs once per trip and every trip is recorded,
 which gives the reference's trip-count rule without parsing; ``trip``
@@ -79,6 +89,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
 from repro_torch.kernels import meta
+from repro_torch.models import shard
 
 aten = torch.ops.aten
 
@@ -124,8 +135,9 @@ COLLECTIVES: Dict[str, Optional[str]] = {
 def collective_kind(entry: str) -> str:
     """The reference's kind of a collective entry point (``all-gather``,
     ``all-reduce``, ``reduce-scatter``, ``all-to-all``, point-to-point as
-    ``collective-permute``); the rest by their own names."""
-    base = entry.lstrip("_")
+    ``collective-permute``); the rest by their own names. A functional
+    collective's entry is ``_c10d_functional.<op>``."""
+    base = entry.rsplit(".", 1)[-1].lstrip("_")
     for prefix, kind in (("all_gather", "all-gather"),
                          ("all_reduce", "all-reduce"),
                          ("reduce_scatter", "reduce-scatter"),
@@ -149,6 +161,23 @@ def collective_operands(value) -> List[Tuple[str, int]]:
     if value is None:
         return []
     return [("object", len(pickle.dumps(value)))]
+
+
+# the functional collectives (``torch.ops._c10d_functional``) DTensor's
+# redistributions issue on the ``model`` axis; ``wait_tensor`` only waits
+FUNCTIONAL_NAMESPACE = "_c10d_functional"
+
+
+def functional_collective(func, args) -> Optional[Tuple[str, list]]:
+    """``(entry, operands)`` when ``func`` is a functional collective (the
+    ops tensor parallelism's collectives run as), else ``None``: the entry
+    ``_c10d_functional.<op>`` and ``collective_operands`` of its input."""
+    if func.namespace != FUNCTIONAL_NAMESPACE:
+        return None
+    name = func._schema.name.split("::")[-1]
+    if name.startswith("wait"):
+        return None
+    return f"{FUNCTIONAL_NAMESPACE}.{name}", collective_operands(args[0])
 
 
 class _CollectiveHook:
@@ -313,7 +342,10 @@ def _round_block(n: int) -> int:
 
 
 def _tensors(tree) -> List[torch.Tensor]:
-    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+    """The tensors of ``tree``, a ``DTensor`` as this rank's shard."""
+    with torch.no_grad():
+        return [shard.local(t) for t in tree_leaves(tree)
+                if isinstance(t, torch.Tensor)]
 
 
 def _nbytes(tensors) -> int:
@@ -414,6 +446,14 @@ class _Recorder(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(shard.is_dtensor(t) for t in tree_leaves((args, kwargs))):
+            # a DTensor op, at global shapes: DTensor's own dispatch runs
+            # it as local ops and functional collectives, which come back
+            # here
+            return NotImplemented
+        coll = functional_collective(func, args)
+        if coll is not None:
+            self.on_collective(*coll)
         out = func(*args, **kwargs)
         self.trace.dispatched += 1
         if func in _RF_ENTER:
@@ -429,7 +469,7 @@ class _Recorder(TorchDispatchMode):
         if fresh:
             for t in results:
                 self.live.add(t)
-        if skip or not results:
+        if skip or not results or coll is not None:
             return out
         flops = _product_flops(func, args, kwargs, out)
         nbytes = _nbytes(_tensors((args, kwargs))) + _nbytes(results)

@@ -1,6 +1,8 @@
 """Ranks for the port's sharded client fan-out tests, on the CPU over gloo.
 
-``run_ranks(scenario, world, tmp_path)`` starts ``world`` processes of::
+``run_ranks(scenario, world, tmp_path)`` (``start_ranks`` then
+``collect``, for a caller with work of its own meanwhile) starts ``world``
+processes of::
 
     python tests/_torch_fanout.py SCENARIO RANK WORLD STORE OUT
 
@@ -64,10 +66,9 @@ FAULT_KNOBS = dict(participation_rate=0.7, drop_rate=0.2,
 # ---------------------------------------------------------------------------
 
 
-def run_ranks(scenario: str, world: int, tmp_path, timeout: float = 300,
-              extra=()) -> list:
-    """Run ``scenario`` on ``world`` ranks; returns each rank's record
-    (``{"ok": [check, ...], "failed": check or None, ...}``)."""
+def start_ranks(scenario: str, world: int, tmp_path, extra=()) -> Ranks:
+    """Start ``world`` ranks of ``scenario`` and return them running (the
+    caller joins them with ``collect``)."""
     out = str(tmp_path)
     store = os.path.join(out, f"{scenario}.{world}.store")
     if os.path.exists(store):        # a FileStore must start empty
@@ -80,16 +81,31 @@ def run_ranks(scenario: str, world: int, tmp_path, timeout: float = 300,
               str(world), store, out, *extra] for r in range(world)]
     logs = [os.path.join(out, f"{scenario}.rank{r}.log")
             for r in range(world)]
-    with Ranks(argvs, logs, env=env, cwd=REPO) as ranks:
+    return Ranks(argvs, logs, env=env, cwd=REPO)
+
+
+def collect(ranks: Ranks, scenario: str, world: int, tmp_path,
+            timeout: float = 300) -> list:
+    """Join ``ranks`` within ``timeout`` seconds of their start (killing
+    what is left) and return each rank's record (``{"ok": [check, ...],
+    "failed": check or None, ...}``)."""
+    with ranks:
         rcs = ranks.join(timeout)
     records = []
     for r in range(world):
-        path = os.path.join(out, f"{scenario}.rank{r}.json")
+        path = os.path.join(str(tmp_path), f"{scenario}.rank{r}.json")
         rec = json.load(open(path)) if os.path.exists(path) else {"ok": []}
         rec["rc"] = rcs[r]
         rec["log"] = ranks.log(r)
         records.append(rec)
     return records
+
+
+def run_ranks(scenario: str, world: int, tmp_path, timeout: float = 300,
+              extra=()) -> list:
+    """Run ``scenario`` on ``world`` ranks; returns each rank's record."""
+    return collect(start_ranks(scenario, world, tmp_path, extra), scenario,
+                   world, tmp_path, timeout)
 
 
 def assert_check(records: list, check: str) -> None:
@@ -806,12 +822,19 @@ def scenario_toy(r: Rank):
     r.check("toy_strategy_shard_map_codec", _toy_shard_codec)
 
 
+def scenario_tp(r: Rank):
+    """Tensor parallelism on a (world / 2, 2) mesh (tests/_torch_tp.py)."""
+    import _torch_tp
+    _torch_tp.scenario(r)
+
+
 SCENARIOS = {
     "sharding": scenario_sharding,
     "rounds": scenario_rounds,
     "reference": scenario_reference,
     "engine": scenario_engine,
     "toy": scenario_toy,
+    "tp": scenario_tp,
 }
 
 

@@ -98,10 +98,11 @@ def test_train_variants_trace(variant, small):
 @pytest.mark.parametrize("arch", ["internvl2-1b", "seamless-m4t-medium",
                                   "mamba2-370m"])
 def test_prefill_entry_traces(arch, small):
+    """On a (2, 1) mesh rank 0 prefills its 4 // 2 rows of the batch."""
     args, tr = _trace(arch, "prefill_32k", (2, 1))
     logits, cache, t0 = tr.result
     cfg = get_smoke_config(arch)
-    assert tuple(logits.shape) == (4, cfg.vocab_size)
+    assert tuple(logits.shape) == (4 // 2, cfg.vocab_size)
     assert H.analyze(tr).flops > 0
 
 
@@ -116,21 +117,41 @@ def test_moe_entries_trace(shape, small):
     assert not any("nonzero" in o.op for o in tr.ops)
 
 
+@pytest.fixture
+def tp_reset():
+    """The variants are process-wide, as in the reference: reset them the
+    way its fixture does."""
+    yield
+    from repro_torch.models import params as P_, shard
+    P_.set_qk_hd_fallback(True)
+    shard.enable(False)
+
+
 @pytest.mark.parametrize("case", ["act_shard", "no_qk_hd_shard",
                                   "model-axis", "multi-pod"])
-def test_tensor_parallel_inputs_raise(case, small):
-    """Until the sharding rules land (ROADMAP.md Queue A item 2)."""
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
-        if case == "multi-pod":
-            dryrun.run_pair("qwen1.5-0.5b", "prefill_32k", multi_pod=True,
-                            device="cpu", save=False)
-        elif case == "model-axis":
-            dryrun.run_pair("qwen1.5-0.5b", "prefill_32k",
-                            mesh_shape=(1, 2), device="cpu", save=False)
-        else:
-            with dryrun.fake_mesh((2, 1)) as mesh:
-                specs_lib.make_entry("internvl2-1b", "prefill_32k", mesh,
-                                     variant={case: True})
+def test_tensor_parallel_inputs_trace(case, small, tp_reset):
+    """A model axis larger than 1 (a (1, 2) mesh, the multi-pod (2, 16, 16)
+    mesh) and the variants act_shard and no_qk_hd_shard trace, the
+    parameters as DTensor shards on the model sub-mesh."""
+    if case == "multi-pod":
+        res = dryrun.run_pair("qwen1.5-0.5b", "prefill_32k", multi_pod=True,
+                              device="cpu", save=False, verbose=False)
+        assert res["mesh"] == "2x16x16" and res["chips"] == 512
+    elif case == "model-axis":
+        res = dryrun.run_pair("qwen1.5-0.5b", "prefill_32k",
+                              mesh_shape=(1, 2), device="cpu", save=False,
+                              verbose=False)
+        assert res["chips"] == 2
+    else:
+        args, tr = _trace("internvl2-1b", "prefill_32k", (1, 2),
+                          {case: True})
+        from torch.distributed.tensor import DTensor
+        assert all(isinstance(t, DTensor) for t in tree_leaves(args[0]))
+        assert H.analyze(tr).flops > 0 and tr.collectives
+        return
+    assert res["roofline"]["flops_per_dev"] > 0
+    assert res["memory_per_dev"]["peak_bytes"] >= \
+        res["memory_per_dev"]["argument_bytes"] > 0
 
 
 def test_train_flops_track_the_reference(small, monkeypatch):
