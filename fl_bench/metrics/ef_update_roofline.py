@@ -1,0 +1,26 @@
+"""Kernel B2 (``ef_update_table``, the residual e' = u − s·d over f32
+trees of d elements) against its bound: 12·d bytes (u and d read, e'
+written) at the card's HBM bandwidth over B2's mean device time a launch,
+in percent."""
+import math
+
+import flb_peaks
+import flb_trace
+
+
+def tree_bytes(cell) -> float:
+    d = sum(math.prod(shape) for _, shape, _ in
+            cell.family.param_specs(cell.cfg))
+    return 12.0 * d
+
+
+def read(run):
+    tr = run.get("trace")
+    if not tr:
+        return None
+    secs, launches = flb_trace.kernel_time(tr, "ef_update_table")
+    # the program's own count of the traced round's launches must agree
+    if not launches or run["launches"]["ef_update"] != launches:
+        return None
+    return 100.0 * tree_bytes(run["cell"]) / flb_peaks.HBM_BW / (
+        secs / launches)
