@@ -26,8 +26,12 @@ guarantee the generic linters cannot state:
   judged by its own call. Reachability is the reference's name-based
   over-approximation pruned by module imports: a call edge from a function
   in module M resolves to every same-named definition in M or a module M
-  imports (dunder names excluded). Nothing reachable is exempt: the
-  ``obs`` package's clock reads sit outside what the roots reach.
+  imports (dunder names excluded). Nothing reachable is exempt. The
+  ``obs`` package's phase spans sit on the round path
+  (``make_client_step``'s step, the server phase), but their clock is the
+  tracer's injected callable (``Tracer._clock``), which the name index
+  never resolves to a definition, and it only stamps span records: it
+  never feeds a round's values.
 * ``registry-kind-ids`` — every ``@register_strategy("k")`` kind has a
   wire kind-id in ``comm/frame.py``'s ``KIND_IDS`` literal.
 * ``public-api-exports`` — package ``__all__`` literals match the GOLDEN

@@ -86,7 +86,7 @@ import numpy as np
 
 from repro_torch.comm.channel import Channel
 from repro_torch.comm.frame import FrameError, parse_header
-from repro_torch.obs import get_registry, get_tracer
+from repro_torch.obs import get_registry, get_tracer, now_ns
 
 # message types (u8 on the wire; append only, never renumber)
 MSG_HELLO = 0        # worker -> server: u32 client id
@@ -94,7 +94,8 @@ MSG_SETUP = 1        # server -> worker: JSON setup blob
 MSG_ROUND = 2        # server -> worker: u32 round | u8 flags | params frame
 MSG_FRAME = 3        # worker -> server: one codec frame
 MSG_HEARTBEAT = 4    # worker -> server: liveness tick; body is empty (legacy)
-#                      or u64 LE worker monotonic_ns (clock-offset estimation)
+#                      or u64 LE worker clock ns, obs.now_ns (clock-offset
+#                      estimation)
 MSG_RESEND = 5       # server -> worker: u32 round — re-send that frame
 MSG_ACK = 6          # server -> worker: u32 round | u8 delivered
 MSG_EF_REQ = 7       # server -> worker: dump your EF residual (empty body)
@@ -195,7 +196,7 @@ class SocketServer(Channel):
         self._metrics: Dict[Tuple[int, int], float] = {}
         # spans piggybacked on MSG_METRIC, still on each worker's own clock
         self._worker_spans: Dict[int, List[dict]] = {}
-        # cid -> min(server_mono_ns_at_recv - worker_heartbeat_ts): the
+        # cid -> min(server_now_ns_at_recv - worker_heartbeat_ts): the
         # tightest heartbeat bounds offset + one-way latency from above,
         # so min over samples ≈ the clock offset (latency inflates, never
         # deflates, the estimate)
@@ -290,7 +291,7 @@ class SocketServer(Channel):
                         # timestamped heartbeat: tighten the clock-offset
                         # estimate (min over samples, see _clock_offset_ns)
                         (wts,) = struct.unpack_from("<Q", body)
-                        off = time.monotonic_ns() - wts
+                        off = now_ns() - wts
                         with self._lock:
                             prev = self._clock_offset_ns.get(cid)
                             if prev is None or off < prev:
@@ -704,7 +705,7 @@ class ServerLink:
                     # timestamped tick: the server turns these into a
                     # clock-offset estimate for cross-process trace merge
                     self.send(MSG_HEARTBEAT,
-                              struct.pack("<Q", time.monotonic_ns()))
+                              struct.pack("<Q", now_ns()))
                 except (ConnectionError, OSError):
                     return
         threading.Thread(target=beat, daemon=True).start()

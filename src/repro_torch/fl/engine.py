@@ -366,7 +366,9 @@ class RoundEngine:
                   length: int) -> Tuple[FLState, RoundMetrics]:
         """``length`` rounds; their metrics come back to the host at the end
         of the block. Span tags use the engine's own round count, never a
-        device read."""
+        device read. With tracing on, ``engine.sync`` settles the block's
+        device marks and folds its spans into the meter registry
+        (``Tracer.settle``)."""
         tracer = get_tracer()
         r0 = self.stats.rounds
         ms = []
@@ -376,6 +378,12 @@ class RoundEngine:
                 ms.append(m)
         with tracer.span("engine.sync", block=length, rounds_done=r0):
             host = _to_host(ms)
+            # the block's phase spans get their device times here, at the
+            # sync the block makes anyway (tracing on only)
+            end = (tracer.sync_point(tree_leaves(state.params)[0].device)
+                   if tracer.enabled else None)
+        if end is not None:
+            tracer.settle(*end, rounds=length)
         self.stats.host_syncs += 1
         self.stats.rounds += length
         return state, host
@@ -427,11 +435,15 @@ class RoundEngine:
                  num_rounds: int) -> Tuple[FLState, RoundMetrics]:
         """The seed driver's pattern: one round at a time, reading the loss
         and the mean cosine back to the host after each."""
+        tracer = get_tracer()
         out: List[RoundMetrics] = []
         for _ in range(num_rounds):
             state, m = self._round(state)
             float(m.loss)
             float(torch.mean(m.cosine))
+            if tracer.enabled:
+                tracer.settle(*tracer.sync_point(
+                    tree_leaves(state.params)[0].device))
             self.stats.host_syncs += 2
             self.stats.rounds += 1
             out.append(m)

@@ -66,6 +66,15 @@ what the step does (no collective, no host read of a tensor's value).
 With ``donate=True`` (``RoundEngine``'s default) the round writes the new
 EF rows into the input state's EF tensors instead of a second N×d tree.
 
+Phase spans (``repro_torch.obs``): with the process tracer on, each
+client's step opens ``client.train`` (local training) and
+``client.encode`` (the strategy's step: accumulate, encode, EF), and the
+round's server phase ``server.aggregate`` (the messages' decode through
+the update's norm), each marked on the params' device; the caller's host
+sync settles their device times (``RoundEngine.run_block``). They are
+opened when the round runs, so a tracer turned on after the round was
+built sees them; with it off each is the shared no-op span.
+
 Tensor parallelism: when the state's params are ``DTensor``s on the
 ``model`` sub-mesh (``FLShardings.place_state`` on a mesh whose model axis
 is larger than 1), the round runs in ``models.shard``'s context, each
@@ -99,6 +108,7 @@ from repro_torch.fl import faults as faults_lib
 from repro_torch.fl.client import local_train
 from repro_torch.fl.server import aggregate, server_update
 from repro_torch.models import shard
+from repro_torch.obs import get_tracer
 
 PyTree = Any
 
@@ -263,9 +273,14 @@ def make_client_step(loss_fn: Callable[[PyTree, Dict], torch.Tensor],
 
     def step(params, batches_i, ef_i, key_i, cid: int,
              rnd: int) -> ClientStep:
-        g, loss = local_train(loss_fn, params, batches_i, cfg.local_lr,
-                              num_micro=run.num_micro)
-        msg, ef_row, m = encode(key_i, g, ef_i, params, cid, rnd)
+        tracer = get_tracer()
+        dev = flat.tree_leaves(params)[0].device if tracer.enabled else None
+        with tracer.span("client.train", device=dev, client=cid, round=rnd,
+                         K=cfg.local_steps, num_micro=run.num_micro):
+            g, loss = local_train(loss_fn, params, batches_i, cfg.local_lr,
+                                  num_micro=run.num_micro)
+        with tracer.span("client.encode", device=dev, client=cid, round=rnd):
+            msg, ef_row, m = encode(key_i, g, ef_i, params, cid, rnd)
         return ClientStep(msg, ef_row, g, loss, m)
 
     return step
@@ -536,41 +551,46 @@ def build_fl_round(
             loss = torch.mean(torch.stack(kept)) * _ratio(N, sum(part))
         else:
             loss = torch.mean(losses)
-        # (N, ...) messages: payloads (fused) or reconstructions
-        batch = server_messages(codec if wired else None, msgs, params,
-                                fused=fused)
-        buf, buf_w = state.buf, state.buf_w
-        if fused:
-            pf = torch.tensor(strategy.payload_floats(params),
-                              dtype=torch.float32, device=device)
-            if faulted:
-                # zero undelivered payloads inside the batched aggregate (S
-                # is 0 here by RunConfig), then renormalize over arrivals
-                now = sched.arrives_now
-                arrivals = float(now.sum())
-                agg = strategy.server_aggregate(params, strategy.mask_payloads(
-                    batch, now.to(torch.float32).to(device)))
-                agg = flat.tree_scale(agg, _ratio(N, arrivals))
+        # the server phase, from the messages to the update's norm
+        with get_tracer().span("server.aggregate", device=device,
+                               round=state.round):
+            # (N, ...) messages: payloads (fused) or reconstructions
+            batch = server_messages(codec if wired else None, msgs, params,
+                                    fused=fused)
+            buf, buf_w = state.buf, state.buf_w
+            if fused:
+                pf = torch.tensor(strategy.payload_floats(params),
+                                  dtype=torch.float32, device=device)
+                if faulted:
+                    # zero undelivered payloads inside the batched aggregate
+                    # (S is 0 here by RunConfig), then renormalize over
+                    # arrivals
+                    now = sched.arrives_now
+                    arrivals = float(now.sum())
+                    agg = strategy.server_aggregate(
+                        params, strategy.mask_payloads(
+                            batch, now.to(torch.float32).to(device)))
+                    agg = flat.tree_scale(agg, _ratio(N, arrivals))
+                else:
+                    agg = strategy.server_aggregate(params, batch)
+                    arrivals = float(N)
             else:
-                agg = strategy.server_aggregate(params, batch)
-                arrivals = float(N)
-        else:
-            pf = torch.mean(floats)
-            if faulted:
-                agg, arrivals, buf, buf_w = faulted_aggregate(
-                    state, batch, sched, weights, device)
-            else:
-                agg = aggregate(batch, weights)
-                arrivals = float(N)
-        new_params = server_update(params, agg, cfg.server_lr)
-        rm = RoundMetrics(
-            loss=loss,
-            cosine=cos,
-            payload_floats=pf,
-            update_norm=flat.tree_norm(agg),
-            wire_bytes_up=wire_bytes,
-            arrivals=arrivals,
-        )
+                pf = torch.mean(floats)
+                if faulted:
+                    agg, arrivals, buf, buf_w = faulted_aggregate(
+                        state, batch, sched, weights, device)
+                else:
+                    agg = aggregate(batch, weights)
+                    arrivals = float(N)
+            new_params = server_update(params, agg, cfg.server_lr)
+            rm = RoundMetrics(
+                loss=loss,
+                cosine=cos,
+                payload_floats=pf,
+                update_norm=flat.tree_norm(agg),
+                wire_bytes_up=wire_bytes,
+                arrivals=arrivals,
+            )
         return FLState(new_params, new_ef, state.round + 1, buf, buf_w), rm
 
     return fl_round

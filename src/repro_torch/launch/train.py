@@ -36,8 +36,11 @@ liveness knobs are ``RunConfig``'s); ``--ckpt-every`` writes full-state
 recovery points under ``<out>/ckpt`` and ``--resume`` continues one
 bitwise, on either transport; ``--trace`` writes the merged span trace
 (``trace.jsonl``, ``trace.chrome.json``), ``--profile`` a
-``torch.profiler`` trace of a round window, and ``--metrics-port``
-serves ``/healthz`` and ``/metrics``:
+``torch.profiler`` trace of a round window (with ``--trace``, the
+window's spans and their device rows in the same file, on its clock), and
+``--metrics-port`` serves ``/healthz`` and ``/metrics`` (with
+``--trace``, each phase span's host and device ms a round as
+histograms):
 
     PYTHONPATH=src python -m repro_torch.launch.train --wire codec \
         --transport socket --rounds 20 --ckpt-every 5 --trace
@@ -95,8 +98,9 @@ from repro_torch.models.cnn import (DATASETS, VisionSpec, accuracy,
                                     make_paper_model)
 from repro_torch.models.encdec import EncDec
 from repro_torch.models.transformer import LM
-from repro_torch.obs import (configure_tracer, get_registry, get_tracer,
-                             merge_traces, set_tracer, write_chrome_trace)
+from repro_torch.obs import (add_to_chrome_trace, configure_tracer,
+                             get_registry, get_tracer, merge_traces, now_ns,
+                             set_tracer, write_chrome_trace)
 from repro_torch.obs.http import ObsHTTPServer
 
 # the reference's reduced LM run (launch/train.py train_lm_smoke)
@@ -195,7 +199,10 @@ class _MetricsLog:
 
 class _ProfileWindow:
     """``torch.profiler`` capture over a round window ``[start, stop)``,
-    written as a Chrome trace ``<dir>/rounds_<start>_<stop>.json``.
+    written as a Chrome trace ``<dir>/rounds_<start>_<stop>.json``. With
+    the process tracer on (``--trace``) the file also carries the spans
+    that closed in the window, with their device rows, on the profile's
+    own ``baseTimeNanoseconds`` (one clock: ``obs.now_ns``).
 
     Drive it with ``maybe_start(next_round)`` before rounds begin and
     ``after_round(completed_round)`` at round boundaries; ``close()``
@@ -219,6 +226,7 @@ class _ProfileWindow:
         self._prof = torch.profiler.profile(activities=acts)
         self._prof.__enter__()
         self._first = next_round
+        self._t0 = now_ns()
 
     def after_round(self, completed_round: int) -> None:
         nxt = completed_round + 1
@@ -229,8 +237,13 @@ class _ProfileWindow:
     def _stop(self, end: int) -> None:
         prof, self._prof = self._prof, None
         prof.__exit__(None, None, None)
-        prof.export_chrome_trace(os.path.join(
-            self.dir, f"rounds_{self._first}_{end}.json"))
+        path = os.path.join(self.dir, f"rounds_{self._first}_{end}.json")
+        prof.export_chrome_trace(path)
+        tracer = get_tracer()
+        if tracer.enabled:
+            add_to_chrome_trace(path, [
+                r for r in tracer.to_dicts()
+                if r.get("t0", r.get("t", 0)) >= self._t0])
         self.done = True
 
     def close(self) -> None:
@@ -675,7 +688,8 @@ def train_lm(args, cfg: ModelConfig, comp: CompressorConfig, seq_len: int,
     (IID batches of ``args.batch`` sequences, ``args.local_steps`` local
     steps), the update compressed by ``comp``; one row per eval with the
     reference's keys ``round``, ``loss``, ``cos``, ``params``, printed and
-    written to ``<out>/metrics.jsonl``."""
+    written to ``<out>/metrics.jsonl``; ``--profile`` and ``--trace`` as
+    the vision run's (``meters.json``, the traces)."""
     device = resolve_device(args.device)
     mode, mesh, shardings = make_fanout(args, device)
     model, strategy, run = lm_setup(args, cfg, comp, seq_len,
@@ -706,8 +720,13 @@ def train_lm(args, cfg: ModelConfig, comp: CompressorConfig, seq_len: int,
     _write_run_config(args.out, {**run.to_json(), "arch": cfg.name,
                                  "seq_len": seq_len, "device": str(device),
                                  "world_size": world_size()})
+    profiler = _make_profiler(args, 0)
+    if profiler is not None:
+        profiler.maybe_start(0)
     with _MetricsLog(args.out) as log:
         def on_eval(st, m, r):
+            if profiler is not None:
+                profiler.after_round(r - 1)
             if log.writer:
                 log.write({"round": r, "loss": float(m.loss[-1]),
                            "cos": float(m.cosine[-1].mean()), "params": d})
@@ -715,9 +734,17 @@ def train_lm(args, cfg: ModelConfig, comp: CompressorConfig, seq_len: int,
         # the engine takes the only reference to the first state: kept in
         # this frame, it would stay on the device beside every later
         # round's (at 1.1 B parameters, 5 trees of 4.4 GB)
-        state, hist = engine.run(first.pop(), args.rounds,
-                                 eval_every=args.eval_every, eval_fn=on_eval)
-    return _finish(state, shardings), hist
+        try:
+            state, hist = engine.run(first.pop(), args.rounds,
+                                     eval_every=args.eval_every,
+                                     eval_fn=on_eval)
+        finally:
+            if profiler is not None:
+                profiler.close()
+    state = _finish(state, shardings)
+    if process_rank() == 0:
+        _dump_obs(args.out)
+    return state, hist
 
 
 def train_lm_smoke(args) -> Tuple[FLState, RunHistory]:

@@ -232,8 +232,10 @@ def _serve(link: ServerLink, compute, client_id: int,
     ordered per connection.
 
     When the process tracer is on (SETUP ``trace``), the round's
-    decode/compute/straggle spans ride on the MSG_METRIC body, on this
-    worker's own clock, for the server's offset-shifted merge."""
+    decode/compute/straggle spans (and ``worker.compute``'s children, the
+    client step's ``client.train`` and ``client.encode``, settled with
+    their device times) ride on the MSG_METRIC body, on this worker's own
+    clock, for the server's offset-shifted merge."""
     if log is None:
         log = get_logger("worker", client=client_id)
     tracer = get_tracer()
@@ -273,6 +275,10 @@ def _serve(link: ServerLink, compute, client_id: int,
                 params = compute.decode_params(body[5:])
             with tracer.span("worker.compute", round=rnd, phase="compute"):
                 frame, loss = compute.compute(params, rnd)
+            if tracer.enabled:
+                # the frame is on the host: settle the round's device
+                # marks (client.train, client.encode) before they drain
+                tracer.settle(*tracer.sync_point(compute.device))
             if straggle_s > 0:
                 with tracer.span("worker.straggle", round=rnd,
                                  phase="straggle", sleep_s=straggle_s):

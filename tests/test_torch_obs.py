@@ -23,7 +23,7 @@ from repro_torch.obs import (Tracer, get_logger, merge_traces,
                              read_trace_jsonl, write_chrome_trace)
 from repro_torch.obs.http import ObsHTTPServer
 from repro_torch.obs.meters import MetricsRegistry
-from repro_torch.obs.trace import _NOOP_SPAN
+from repro_torch.obs.trace import DEVICE_TID, _NOOP_SPAN, chrome_events
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -130,6 +130,343 @@ def test_chrome_trace_export(tmp_path):
     assert x["ts"] == 0.0 and x["dur"] == 4000.0          # rebased, us units
     i = next(e for e in evs if e["ph"] == "i")
     assert i["ts"] == 1000.0 and i["args"]["bytes"] == 4
+
+
+# ---------------------------------------------------------------------------
+# the clock, parents, device marks and the registry fold
+# ---------------------------------------------------------------------------
+
+
+def test_span_clock_encloses_profiler_record():
+    """A span around a ``record_function`` region under a CPU-activity
+    torch.profiler run encloses that record's start and end: the tracer's
+    clock is the one the profiler stamps its records with."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    t = Tracer(enabled=True)
+    x = torch.randn(64, 64)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for i in range(3):
+            with t.span("outer", i=i):
+                with record_function(f"region{i}"):
+                    x @ x
+    spans = {r["i"]: r for r in t.drain()}
+    recs = {e.name(): e for e in prof.profiler.kineto_results.events()
+            if e.name().startswith("region")}
+    assert len(spans) == len(recs) == 3
+    for i, sp in spans.items():
+        e = recs[f"region{i}"]
+        assert sp["t0"] <= e.start_ns()
+        assert e.start_ns() + e.duration_ns() <= sp["t1"]
+
+
+def _nested_records():
+    t = Tracer(enabled=True, proc="p")
+    with t.span("a"):
+        with t.span("b"):
+            t.event("e")
+        with t.span("c") as c:
+            c.end()               # closed early: d's parent is a, not c
+            with t.span("d"):
+                pass
+
+    def other():
+        with t.span("x"):
+            pass
+
+    th = threading.Thread(target=other)
+    th.start()
+    th.join(10)
+    assert not th.is_alive()
+    return t.drain()
+
+
+def test_spans_record_ids_parents_and_threads():
+    recs = {r["name"]: r for r in _nested_records()}
+    a, b, c, d, x = (recs[n] for n in "abcdx")
+    assert a["parent"] is None and x["parent"] is None
+    assert b["parent"] == c["parent"] == d["parent"] == a["id"]
+    assert len({r["id"] for r in (a, b, c, d, x)}) == 5
+    assert a["tid"] == b["tid"] == recs["e"]["tid"] != x["tid"]
+
+
+def test_chrome_trace_nests_children_in_their_parents(tmp_path):
+    recs = _nested_records()
+    path = str(tmp_path / "t.json")
+    write_chrome_trace(recs, path)
+    with open(path) as f:
+        evs = [e for e in json.load(f)["traceEvents"] if e["ph"] == "X"]
+    by = {e["name"]: e for e in evs}
+    for child in "bcd":
+        e, p = by[child], by["a"]
+        assert (e["pid"], e["tid"]) == (p["pid"], p["tid"])
+        assert p["ts"] <= e["ts"] and e["ts"] + e["dur"] <= p["ts"] + p["dur"]
+        assert e["args"]["parent"] == p["args"]["id"]
+    assert by["x"]["tid"] != by["a"]["tid"]
+
+
+class _Mark:
+    """A device mark standing for a timing event: ``at`` is the device
+    time (ns) at which the stream reached it (None: never recorded)."""
+
+    def __init__(self, at):
+        self.at = at
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, end):
+        if self.at is None or end.at is None:
+            raise RuntimeError("event not recorded")
+        return (end.at - self.at) / 1e6          # ms, as torch.cuda.Event
+
+
+def _marked_tracer(dev_times):
+    """A tracer on a hand-stepped clock whose marks come from
+    ``dev_times`` in order, with its marker calls counted."""
+    now = {"t": 0, "marks": 0}
+    times = iter(dev_times)
+
+    def marker(device):
+        now["marks"] += 1
+        return _Mark(next(times))
+
+    t = Tracer(enabled=True, clock=lambda: now["t"], marker=marker)
+    return t, now
+
+
+def test_settle_arithmetic_with_injected_marks(traced):
+    """The stream reached each mark at ``h − elapsed(mark, E)``: d0/d1 on
+    the tracer's clock; an unmarked span gets none and costs no mark."""
+    t, now = _marked_tracer([5_000, 9_000, 12_000])
+    traced(t)
+    now["t"] = 1_000
+    with t.span("k", device="dev"):              # mark at device 5,000
+        now["t"] = 2_000                         # closing mark at 9,000
+    with t.span("host_only"):
+        pass
+    assert now["marks"] == 2
+    now["t"] = 40_000
+    end, h = t.sync_point("dev")                 # E at 12,000, h 40,000
+    assert h == 40_000 and end.at == 12_000
+    assert t.settle(end, h) == 0 and t.unsettled == 0
+    k, host = t.drain()
+    assert (k["t0"], k["t1"]) == (1_000, 2_000)
+    assert k["d0"] == 40_000 - (12_000 - 5_000)
+    assert k["d1"] == 40_000 - (12_000 - 9_000)
+    assert "d0" not in host and "d1" not in host
+
+
+def test_unsettled_marks_are_counted(traced, monkeypatch):
+    from repro_torch.obs import trace as trace_mod
+
+    t, now = _marked_tracer([1, 2, 3, 4, None, 6, 7, 8, 9, 10, 11, 12, 13])
+    reg = traced(t)
+    with t.span("a", device="dev"):
+        pass
+    assert t.settle(None, 5) == 1                # nothing to settle against
+    with t.span("b", device="dev"):              # marks 3 and 4
+        pass
+    with t.span("c", device="dev"):              # a mark never recorded
+        pass
+    assert t.settle(*t.sync_point("dev")) == 1   # c; b settles
+    with t.span("d", device="dev"):
+        pass
+    t.drain()                                    # drained before a settle
+    monkeypatch.setattr(trace_mod, "MAX_PENDING", 1)
+    with t.span("e", device="dev"):
+        pass
+    with t.span("f", device="dev"):              # pushes e out
+        pass
+    assert t.unsettled == 4
+    recs = {r["name"]: r for r in t.drain()}
+    assert "d0" not in recs["f"]
+    t.settle(None, 0)
+    assert t.unsettled == 5
+    assert reg.snapshot()["gauges"]["trace.unsettled_marks"] == 5
+
+
+def test_registry_fold_matches_drained_spans(traced):
+    """One observation per round and span name of the host ms (and, for
+    marked spans, the device ms) summed over the block, over its
+    rounds."""
+    t, now = _marked_tracer([100, 1_100_100, 5_000_000])
+    reg = traced(t)
+    for name, t0, t1, dev in (("a", 0, 2_000_000, "dev"),
+                              ("b", 2_000_000, 3_000_000, None),
+                              ("b", 3_000_000, 6_000_000, None)):
+        now["t"] = t0
+        sp = t.span(name, device=dev)
+        now["t"] = t1
+        sp.end()
+    t.settle(*t.sync_point("dev"), rounds=2)
+    recs = t.drain()
+    hs = reg.snapshot()["histograms"]
+    for name in ("a", "b"):
+        host = sum((r["t1"] - r["t0"]) / 1e6 for r in recs
+                   if r["name"] == name)
+        assert hs[f"{name}_ms"]["count"] == 2
+        assert hs[f"{name}_ms"]["sum"] == pytest.approx(host)
+        assert hs[f"{name}_ms"]["p50"] == pytest.approx(host / 2)
+    a = next(r for r in recs if r["name"] == "a")
+    assert hs["a.device_ms"]["count"] == 2
+    assert hs["a.device_ms"]["sum"] == pytest.approx((a["d1"] - a["d0"]) / 1e6)
+    assert hs["a.device_ms"]["sum"] == pytest.approx(1.1)
+    assert "b.device_ms" not in hs
+    t.settle(None, 0)                            # an empty block adds none
+    assert reg.snapshot()["histograms"]["a_ms"]["count"] == 2
+
+
+# ---------------------------------------------------------------------------
+# the phase spans of a round, driven by RoundEngine
+# ---------------------------------------------------------------------------
+
+N_LM = 3
+
+
+def _lm_engine():
+    """A 3SFC+EF round of the smoke mamba2 LM over ``N_LM`` clients (one
+    local step of two 16-token sequences), its engine and first state."""
+    import argparse
+
+    import numpy as np
+
+    from repro_torch.configs.base import CompressorConfig, get_smoke_config
+    from repro_torch.fl.engine import RoundEngine, token_batcher
+    from repro_torch.fl.round import build_fl_round
+
+    cfg = get_smoke_config("mamba2-370m")
+    args = argparse.Namespace(clients=N_LM, local_steps=1, lr=0.01, batch=2,
+                              rounds=1, seed=0)
+    comp = CompressorConfig(kind="threesfc", error_feedback=True,
+                            syn_steps=2, syn_seq=4)
+    model, strategy, run = train_mod.lm_setup(args, cfg, comp, 16)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (8, 16))
+    engine = RoundEngine(build_fl_round(model.loss, strategy, run),
+                         token_batcher(toks, N_LM, 1, 2), seed=0)
+    params = model.init(torch.Generator().manual_seed(0))
+    return engine, engine.init_state(params, N_LM, strategy)
+
+
+@pytest.fixture
+def traced(monkeypatch):
+    """Install a process tracer and a fresh registry for one test."""
+    from repro_torch.obs import meters as meters_mod
+    from repro_torch.obs import trace as trace_mod
+
+    def install(tracer):
+        monkeypatch.setattr(trace_mod, "_GLOBAL", tracer)
+        reg = MetricsRegistry()
+        monkeypatch.setattr(meters_mod, "_GLOBAL", reg)
+        return reg
+
+    return install
+
+
+def test_engine_round_phase_spans_nest_in_dispatch(traced):
+    """With tracing on, every round driven by ``RoundEngine`` yields N
+    ``client.train``, N ``client.encode`` and one ``server.aggregate``,
+    each a child of that round's ``engine.dispatch``, in that order; their
+    host time fits in the dispatch; the registry fold matches the spans."""
+    engine, state = _lm_engine()
+    tracer = Tracer(enabled=True, proc="server")
+    reg = traced(tracer)
+    state, _ = engine.run(state, 3, eval_every=1)
+    recs = tracer.drain()
+    spans = [r for r in recs if r["kind"] == "span"]
+    dispatch = [r for r in spans if r["name"] == "engine.dispatch"]
+    assert len(dispatch) == 3
+    want = [n for i in range(N_LM) for n in ("client.train", "client.encode")]
+    for rnd, d in enumerate(dispatch):
+        kids = [r for r in spans if r["parent"] == d["id"]]
+        assert [r["name"] for r in kids] == want + ["server.aggregate"]
+        assert [r.get("client") for r in kids] == [
+            i for i in range(N_LM) for _ in "te"] + [None]
+        assert all(r["round"] == rnd for r in kids)
+        train = kids[0]
+        assert train["K"] == 1 and train["num_micro"] == 1
+        assert all(d["t0"] <= r["t0"] and r["t1"] <= d["t1"] for r in kids)
+        assert sum(r["t1"] - r["t0"] for r in kids) <= d["t1"] - d["t0"]
+    assert all("d0" not in r for r in spans)     # no device on the CPU
+    assert tracer.unsettled == 0
+    hs = reg.snapshot()["histograms"]
+    for name in ("engine.dispatch", "engine.sync", "client.train",
+                 "client.encode", "server.aggregate"):
+        host = sum((r["t1"] - r["t0"]) / 1e6 for r in spans
+                   if r["name"] == name)
+        assert hs[f"{name}_ms"]["count"] == 3
+        assert hs[f"{name}_ms"]["sum"] == pytest.approx(host)
+    assert not any(k.endswith(".device_ms") for k in hs)
+    # a block of two rounds: two observations of half the block's sum
+    state, _ = engine.run_block(state, 2)
+    recs = [r for r in tracer.drain() if r.get("name") == "client.train"]
+    assert len(recs) == 2 * N_LM
+    block = sum((r["t1"] - r["t0"]) / 1e6 for r in recs)
+    h = reg.snapshot()["histograms"]["client.train_ms"]
+    assert h["count"] == 5
+    assert h["sum"] == pytest.approx(hs["client.train_ms"]["sum"] + block)
+
+
+def test_engine_round_device_marks_through_the_round(traced):
+    """The same round with a marker standing for the stream's events: two
+    marks a phase span and one at the sync, every phase span settled, on
+    the device row of the Chrome export; device times never decrease."""
+    engine, state = _lm_engine()
+    dev_t = {"t": 0}
+
+    def marker(device):                  # a µs of device time a mark
+        dev_t["t"] += 1_000
+        return _Mark(dev_t["t"])
+
+    tracer = Tracer(enabled=True, proc="server", marker=marker)
+    reg = traced(tracer)
+    state, _ = engine.run_block(state, 1)
+    assert dev_t["t"] == 1_000 * (2 * (2 * N_LM + 1) + 1)
+    recs = tracer.drain()
+    phases = [r for r in recs if r["name"] in
+              ("client.train", "client.encode", "server.aggregate")]
+    assert len(phases) == 2 * N_LM + 1 and tracer.unsettled == 0
+    marks = [m for r in phases for m in (r["d0"], r["d1"])]
+    assert marks == sorted(marks) and all(r["d0"] <= r["d1"]
+                                          for r in phases)
+    hs = reg.snapshot()["histograms"]
+    assert hs["client.encode.device_ms"]["count"] == 1
+    assert hs["client.encode.device_ms"]["sum"] == pytest.approx(
+        N_LM * 1_000 / 1e6)
+    events = chrome_events(recs, 0)
+    rows = [e for e in events if e["ph"] == "X" and e["tid"] == DEVICE_TID]
+    assert sorted(e["name"] for e in rows) == sorted(r["name"]
+                                                     for r in phases)
+
+
+def test_tracing_off_round_creates_nothing(traced, monkeypatch):
+    """With tracing off, the traced round's code reads no clock, records
+    no mark, creates no ``torch.cuda.Event``, no span and no registry
+    instrument."""
+    engine, state = _lm_engine()
+    made = {"events": 0, "clock": 0, "marks": 0}
+
+    class Event:
+        def __init__(self, *a, **k):
+            made["events"] += 1
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+
+    def clock():
+        made["clock"] += 1
+        return 0
+
+    def marker(device):
+        made["marks"] += 1
+
+    tracer = Tracer(enabled=False, clock=clock, marker=marker)
+    reg = traced(tracer)
+    state, _ = engine.run(state, 2, eval_every=1)
+    state, _ = engine.run_loop(state, 1)
+    assert made == {"events": 0, "clock": 0, "marks": 0}
+    assert tracer.to_dicts() == []
+    snap = reg.snapshot()
+    assert snap["counters"] == snap["gauges"] == snap["histograms"] == {}
 
 
 # ---------------------------------------------------------------------------
@@ -459,8 +796,25 @@ def test_traced_socket_run_reconciles_with_its_ledger(tmp_path):
     assert rec["uplink_exact"] and rec["downlink_exact"], rec
     assert rec["uplink_billed"] > 0 and rec["overhead_up"] > 0
     # the workers' own spans were merged onto the server's clock
-    names = {r["name"] for r in read_trace_jsonl(str(out / "trace.jsonl"))}
+    recs = read_trace_jsonl(str(out / "trace.jsonl"))
+    names = {r["name"] for r in recs}
     assert {"worker.compute", "worker.decode", "worker.send"} <= names
+    # the client step's phase spans are worker.compute's children
+    spans = {(r["proc"], r["id"]): r for r in recs if r["kind"] == "span"}
+    phases = [r for r in recs if r["name"] in ("client.train",
+                                               "client.encode")]
+    assert len(phases) == 2 * 2 * 3
+    for r in phases:
+        parent = spans[(r["proc"], r["parent"])]
+        assert parent["name"] == "worker.compute"
+        assert parent["round"] == r["round"]
+    # one clock: each worker's compute sits in the server's round window
+    rounds = {r["round"]: r for r in recs if r["name"] == "round"}
+    slack = 50_000_000                           # 50 ms of offset error
+    for r in recs:
+        if r["name"] == "worker.compute":
+            win = rounds[r["round"]]
+            assert win["t0"] - slack <= r["t0"] <= r["t1"] <= win["t1"] + slack
     assert (out / "trace.chrome.json").exists()
     assert (out / "meters.json").exists()
 
@@ -513,3 +867,38 @@ def test_trainer_profile_window_writes_a_chrome_trace(tmp_path):
     with open(prof / "rounds_1_3.json") as f:
         doc = json.load(f)
     assert doc["traceEvents"]
+
+
+def test_lm_trainer_profile_window_carries_the_spans(tmp_path, traced):
+    """``train_lm --trace --profile``: the profile window's Chrome trace
+    also holds the program's spans of its rounds, on the file's
+    ``baseTimeNanoseconds``, so each ``client.train`` span encloses the
+    profiler's own records of its work; ``meters.json`` holds the phase
+    histograms."""
+    traced(Tracer(enabled=False))
+    prof, out = tmp_path / "prof", tmp_path / "run"
+    train_mod.main(["--arch", "mamba2-370m", "--smoke", "--rounds", "3",
+                    "--clients", "2", "--local-steps", "1", "--batch", "2",
+                    "--eval-every", "1", "--device", "cpu", "--trace",
+                    "--profile", str(prof), "--profile-window", "1:3",
+                    "--out", str(out)])
+    with open(prof / "rounds_1_3.json") as f:
+        doc = json.load(f)
+    evs = doc["traceEvents"]
+    names = {e["args"]["name"]: e["pid"] for e in evs
+             if e.get("ph") == "M" and e.get("name") == "process_name"}
+    pid = names["server"]
+    mine = [e for e in evs if e.get("pid") == pid and e.get("ph") == "X"]
+    theirs = [e for e in evs if e.get("pid") != pid and e.get("ph") == "X"
+              and e.get("cat") == "cpu_op"]
+    trains = [e for e in mine if e["name"] == "client.train"]
+    assert len(trains) == 2 * 2                  # rounds 1 and 2, 2 clients
+    assert sum(e["name"] == "engine.dispatch" for e in mine) == 2
+    for sp in trains:
+        inside = [e for e in theirs if sp["ts"] <= e["ts"]
+                  and e["ts"] + e["dur"] <= sp["ts"] + sp["dur"]]
+        assert inside, sp
+    with open(out / "meters.json") as f:
+        hs = json.load(f)["histograms"]
+    assert hs["client.train_ms"]["count"] == 3
+    assert (out / "trace.jsonl").exists()
