@@ -161,11 +161,15 @@ class CompressionStrategy:
         return flat.tree_add(g_tree, e_tree) if self.cfg.error_feedback \
             else g_tree
 
-    def _ef_update(self, u, e_tree, recon, direction, scale) -> PyTree:
+    def _ef_update(self, u, e_tree, recon, direction, scale, *,
+                   out=None) -> PyTree:
         if not self.cfg.error_feedback:
             return e_tree
         if direction is not None:
-            return ops.tree_ef_update(u, direction, scale)
+            return ops.tree_ef_update(u, direction, scale, out=out)
+        if out is not None:
+            return flat.tree_map(lambda o, a, b: torch.sub(a, b, out=o),
+                                 out, u, recon)
         return flat.tree_sub(u, recon)
 
     @staticmethod
@@ -177,22 +181,32 @@ class CompressionStrategy:
     # -- derived steps (what fl.round calls) ---------------------------------
     def step(self, key, g_tree, e_tree, params):
         """Float mode: (recon_tree, new_e_tree, CompressMetrics)."""
-        u = self._accumulate(g_tree, e_tree)
-        out = self.client_encode(key, u, params)
-        e_new = self._ef_update(u, e_tree, out.recon, out.direction, out.scale)
-        cos = self._efficiency_cosine(out, out.recon, u)
-        return out.recon, e_new, CompressMetrics(cos, out.floats, out.aux)
+        return self.encode_update(key, self._accumulate(g_tree, e_tree),
+                                  e_tree, params)
 
     def payload_step(self, key, g_tree, e_tree, params):
         """Fused mode: (wire payload, new_e_tree, CompressMetrics)."""
-        u = self._accumulate(g_tree, e_tree)
+        return self.encode_update(key, self._accumulate(g_tree, e_tree),
+                                  e_tree, params, wire=True)
+
+    def encode_update(self, key, u, e_tree, params, *, wire: bool = False,
+                      ef_out=None):
+        """``step`` (float mode) or, with ``wire``, ``payload_step`` from
+        the accumulated update ``u`` = g + e: (message, new_e_tree,
+        CompressMetrics). ``ef_out``, a tree shaped as the residual (``u``
+        itself may be it), takes the new residual in place; the values are
+        the same. The round's CUDA graph of the encode
+        (``repro_torch.fl.encode_graph``) captures this function."""
         out = self.client_encode(key, u, params)
-        if out.wire is None:
+        if wire and out.wire is None:
             raise ValueError(
                 f"compressor kind {self.cfg.kind!r} emits no wire payload")
-        e_new = self._ef_update(u, e_tree, out.recon, out.direction, out.scale)
+        ef_args = (u, e_tree, out.recon, out.direction, out.scale)
+        e_new = (self._ef_update(*ef_args) if ef_out is None
+                 else self._ef_update(*ef_args, out=ef_out))
         cos = self._efficiency_cosine(out, out.recon, u)
-        return out.wire, e_new, CompressMetrics(cos, out.floats, out.aux)
+        return (out.wire if wire else out.recon), e_new, \
+            CompressMetrics(cos, out.floats, out.aux)
 
     def wire_step(self, key, g_tree, e_tree, params, *, codec,
                   round_idx=0, client_idx=0):

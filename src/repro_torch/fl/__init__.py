@@ -5,6 +5,8 @@
 ``engine``  — ``RoundEngine`` (device-resident data, seeded batches, EF
               donation), ``LiveRoundLoop`` and the transport's retries.
 ``faults``  — the seeded fault schedule and its masked aggregate.
+``encode_graph`` — each client row's 3SFC encode as a CUDA graph, and
+              where the round takes that path.
 ``sharding`` — ``FLShardings``, the placement of the sharded fan-out.
               DTensor's import (sympy, fx) takes seconds, so its two names
               load on first use: a socket worker never pays for it.

@@ -28,7 +28,9 @@ EF donation: ``RoundEngine(..., donate=True)`` (the default, as the
 reference's) hands every round its input state to consume: the round
 writes each client's new EF row into that state's own EF tensors
 (``build_fl_round``'s ``donate=True``), so the N×d residual is never held
-twice. Where JAX raises on a donated buffer's reuse, a torch tensor just
+twice; where the round replays its encode as CUDA graphs
+(``repro_torch.fl.encode_graph``) it writes the new params into the
+state's params as well. Where JAX raises on a donated buffer's reuse, a torch tensor just
 holds the next round's values, so a donated ``FLState`` must never be
 touched after the call: every ``run*`` method returns the state that
 replaces it, and the engine refuses a state whose EF it already donated to
@@ -264,8 +266,9 @@ class RoundEngine:
     batches. ``run`` fetches metrics once per eval block; ``run_loop`` is
     the per-round reference loop with two scalar syncs per round. Both run
     the same rounds in the same order, so they agree bitwise. With
-    ``donate`` (the default) each round consumes the state it is handed
-    (see the module docstring); with ``shardings`` (the round built with
+    ``donate`` (the default) each round consumes the state it is handed,
+    its EF and, on the encode graph path, its params (see the module
+    docstring); with ``shardings`` (the round built with
     ``client_parallel='shard_map'``) the state holds this rank's EF rows,
     and each rank donates its own."""
 

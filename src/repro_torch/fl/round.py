@@ -66,6 +66,21 @@ what the step does (no collective, no host read of a tensor's value).
 With ``donate=True`` (``RoundEngine``'s default) the round writes the new
 EF rows into the input state's EF tensors instead of a second N×d tree.
 
+The encode graph path (``repro_torch.fl.encode_graph``): where
+``encode_graph.eager_reason`` finds nothing against it — CUDA params that
+are plain tensors, one process, ``donate=True``, no faults, no codec, the
+``threesfc`` kind with error feedback and no ``SCOPE_HOOKS`` active — each
+client row's encode is one CUDA graph, warmed eagerly on the capture
+stream in the row's first round, captured in its second and replayed from
+then on. Its update u = g + e accumulates in place into the donated EF
+row, where B2 also writes e'; its message goes into row j of an (N, ...)
+message tree kept across rounds; and the server writes w^{t+1} into the
+input state's params, so a donated round on this path consumes the
+params too. The values are bitwise the eager round's. Everywhere else
+(the CPU, tensor parallelism, the fan-out, faults, codec mode, the other
+strategies, undonated calls, the contract recorder's and sync check's
+hooks) the round runs the eager encode, unchanged.
+
 Phase spans (``repro_torch.obs``): with the process tracer on, each
 client's step opens ``client.train`` (local training) and
 ``client.encode`` (the strategy's step: accumulate, encode, EF), and the
@@ -94,6 +109,7 @@ rank's local one.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -104,6 +120,7 @@ from repro_torch.configs.run import RunConfig
 from repro_torch.core import flat
 from repro_torch.core.strategy import CompressionStrategy, warn_deprecated_once
 from repro_torch.core.threesfc import SynData
+from repro_torch.fl import encode_graph
 from repro_torch.fl import faults as faults_lib
 from repro_torch.fl.client import local_train
 from repro_torch.fl.server import aggregate, server_update
@@ -271,8 +288,10 @@ def make_client_step(loss_fn: Callable[[PyTree, Dict], torch.Tensor],
         def encode(key_i, g, ef_i, params, cid, rnd):
             return method(key_i, g, ef_i, params)
 
-    def step(params, batches_i, ef_i, key_i, cid: int,
-             rnd: int) -> ClientStep:
+    def step(params, batches_i, ef_i, key_i, cid: int, rnd: int, *,
+             encode_fn=None) -> ClientStep:
+        """``encode_fn`` stands in for the strategy's encode (the round's
+        encode graph, ``fl.encode_graph``)."""
         tracer = get_tracer()
         dev = flat.tree_leaves(params)[0].device if tracer.enabled else None
         with tracer.span("client.train", device=dev, client=cid, round=rnd,
@@ -280,7 +299,8 @@ def make_client_step(loss_fn: Callable[[PyTree, Dict], torch.Tensor],
             g, loss = local_train(loss_fn, params, batches_i, cfg.local_lr,
                                   num_micro=run.num_micro)
         with tracer.span("client.encode", device=dev, client=cid, round=rnd):
-            msg, ef_row, m = encode(key_i, g, ef_i, params, cid, rnd)
+            msg, ef_row, m = (encode_fn or encode)(key_i, g, ef_i, params,
+                                                   cid, rnd)
         return ClientStep(msg, ef_row, g, loss, m)
 
     return step
@@ -343,6 +363,7 @@ def build_fl_round(
     *,
     codec=None,
     fault_schedule_fn=None,
+    graph_backend=None,
 ) -> Callable[..., Tuple[FLState, RoundMetrics]]:
     """The round builder over (strategy × float/codec wire × float/fused
     decode × faults).
@@ -371,10 +392,16 @@ def build_fl_round(
     new EF row into the input state's own EF tensors, which the returned
     state then holds: no second N×d tree. Client ``j`` reads its row
     before anything writes it and nothing reads it after, so the round is
-    bitwise the undonated one; the input state is consumed (its EF is the
-    new round's). Under ``client_parallel='shard_map'`` the state's EF
-    tree and the batch tree hold this rank's clients only, and each rank
-    donates its own rows.
+    bitwise the undonated one; the input state is consumed: its EF is the
+    new round's, and on the encode graph path (module docstring) so are
+    its params, which take w^{t+1} in place. Under
+    ``client_parallel='shard_map'`` the state's EF tree and the batch tree
+    hold this rank's clients only, and each rank donates its own rows.
+
+    ``graph_backend`` supplies the encode's CUDA graphs
+    (``encode_graph.CudaGraphBackend`` by default; the tests' seam). The
+    returned function carries its ``encode_graphs``
+    (``encode_graph.EncodeGraphs``).
     """
     cfg: FLConfig = run.fl
     fused = run.fused_decode
@@ -400,6 +427,8 @@ def build_fl_round(
         clients = shardings.local_clients(N)
     else:
         shardings, clients = None, range(N)
+    graphs = encode_graph.EncodeGraphs(strategy, len(clients), fused=fused,
+                                       backend=graph_backend)
 
     def schedule(round_idx: int) -> faults_lib.FaultSchedule:
         if fault_schedule_fn is not None:
@@ -503,6 +532,13 @@ def build_fl_round(
                 f"a shard_map round takes this rank's {len(clients)} EF "
                 f"rows (FLShardings.place_state), got "
                 f"{flat.tree_leaves(state.ef)[0].shape[0]}")
+        reason = encode_graph.eager_reason(
+            params, strategy, graphs.backend, donate=donate,
+            shardings=shardings, faulted=faulted, wired=wired,
+            hooks=bool(SCOPE_HOOKS))
+        graphed = reason is None
+        if not graphed:
+            graphs.count_eager(reason, len(clients))
         new_ef = (state.ef if donate
                   else flat.tree_map(torch.empty_like, state.ef))
         msgs, losses, cos, floats = [], [], [], []
@@ -520,23 +556,31 @@ def build_fl_round(
             # every client trains and encodes, scheduled or not, as in the
             # reference (its cosine is reported either way)
             with client_scope():
-                out = client_step(params, batches_i, ef_i, key_i, i,
-                                  state.round)
+                out = client_step(
+                    params, batches_i, ef_i, key_i, i, state.round,
+                    encode_fn=(functools.partial(graphs.encode, j)
+                               if graphed else None))
             ef_row = out.ef
             if faulted and not (part[i] and deliv[i]):
                 ef_row = missed_ef(strategy, out, ef_i, part[i])
-            # the new residual row goes straight into the (N, ...) tensors
-            # (donated: into row j of the input's, which ef_i views and
-            # nothing reads after this)
-            flat.tree_map(lambda dst, src: dst[j].copy_(src), new_ef, ef_row)
-            if stack_rows:
-                if j == 0:
-                    msgs = flat.tree_map(
-                        lambda m: m.new_empty((N, *m.shape)), out.msg)
-                flat.tree_map(lambda dst, src: dst[j].copy_(src), msgs,
-                              out.msg)
+            if graphed:
+                # the encode wrote its residual into ef_i and its message
+                # into row j of the kept graphs.msgs, in place
+                msgs = graphs.msgs
             else:
-                msgs.append(out.msg)
+                # the new residual row goes straight into the (N, ...)
+                # tensors (donated: into row j of the input's, which ef_i
+                # views and nothing reads after this)
+                flat.tree_map(lambda dst, src: dst[j].copy_(src), new_ef,
+                              ef_row)
+                if stack_rows:
+                    if j == 0:
+                        msgs = flat.tree_map(
+                            lambda m: m.new_empty((N, *m.shape)), out.msg)
+                    flat.tree_map(lambda dst, src: dst[j].copy_(src), msgs,
+                                  out.msg)
+                else:
+                    msgs.append(out.msg)
             losses.append(out.loss)
             cos.append(out.metrics.cosine)
             floats.append(out.metrics.payload_floats)
@@ -582,7 +626,13 @@ def build_fl_round(
                 else:
                     agg = aggregate(batch, weights)
                     arrivals = float(N)
-            new_params = server_update(params, agg, cfg.server_lr)
+            if graphed:
+                # the graphs read the params where they lie: w^{t+1} goes
+                # into w^t's tensors, which the donated state gives up
+                new_params = server_update(params, agg, cfg.server_lr,
+                                           out=params)
+            else:
+                new_params = server_update(params, agg, cfg.server_lr)
             rm = RoundMetrics(
                 loss=loss,
                 cosine=cos,
@@ -593,6 +643,8 @@ def build_fl_round(
             )
         return FLState(new_params, new_ef, state.round + 1, buf, buf_w), rm
 
+    # the encode graphs, for a look from outside (tests, the card's checks)
+    fl_round.encode_graphs = graphs
     return fl_round
 
 

@@ -18,7 +18,7 @@ fallback from one to the other; fake CUDA tensors take the meta branch
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -78,22 +78,23 @@ def _check_device(device: torch.device) -> None:
         raise ValueError(f"ef_update runs on cpu or cuda, not {device}")
 
 
-def _launch(us: List[torch.Tensor], ds: List[torch.Tensor], s: torch.Tensor
-            ) -> List[torch.Tensor]:
-    """One output buffer for every leaf, each leaf's view starting on a
-    16-byte boundary (offsets rounded up to 4 elements), so an aligned leaf
-    keeps the kernel's float4 path."""
+def _launch(us: List[torch.Tensor], ds: List[torch.Tensor], s: torch.Tensor,
+            outs: Optional[List[torch.Tensor]] = None) -> List[torch.Tensor]:
+    """Into ``outs`` where given, else one output buffer for every leaf,
+    each leaf's view starting on a 16-byte boundary (offsets rounded up to
+    4 elements), so an aligned leaf keeps the kernel's float4 path."""
     global LAUNCHES
     device = us[0].device
     sizes = [u.numel() for u in us]
-    padded = [-(-n // 4) * 4 for n in sizes]
-    buf = torch.empty(sum(padded), dtype=torch.float32, device=device)
-    outs = [o if p == n else o.narrow(0, 0, n) for o, p, n in
-            zip(buf.split_with_sizes(padded), padded, sizes)]
+    if outs is None:
+        padded = [-(-n // 4) * 4 for n in sizes]
+        buf = torch.empty(sum(padded), dtype=torch.float32, device=device)
+        outs = [o if p == n else o.narrow(0, 0, n) for o, p, n in
+                zip(buf.split_with_sizes(padded), padded, sizes)]
     plan = leaf_table.segment_plan(sizes)
     if not plan:                     # every leaf is empty
         return outs
-    if meta.is_fake(buf):
+    if meta.is_fake(outs[0]):
         for step in plan:
             leaves = [leaf for leaf, _, _ in step.segments]
             meta.launched("ef_update", [us[l] for l in leaves]
@@ -129,10 +130,14 @@ def ef_update(u: torch.Tensor, d: torch.Tensor,
 
 
 def ef_update_leaves(us: Sequence[torch.Tensor], ds: Sequence[torch.Tensor],
-                     s: torch.Tensor) -> List[torch.Tensor]:
+                     s: torch.Tensor,
+                     out: Optional[Sequence[torch.Tensor]] = None
+                     ) -> List[torch.Tensor]:
     """[u − s·d for each leaf pair] over paired contiguous f32 1-D leaves on
     one device, read where they lie: ``ceil(L / TABLE)`` launches for L
-    non-empty leaves. On the card the outputs are views of one buffer."""
+    non-empty leaves. On the card the outputs are views of one buffer, or
+    ``out``'s leaves where given (each may be its ``u``: every element is
+    read before it is written)."""
     if len(us) != len(ds):
         raise ValueError(f"ef_update_leaves takes two lists of one length, "
                          f"got {len(us)} and {len(ds)}")
@@ -142,7 +147,18 @@ def ef_update_leaves(us: Sequence[torch.Tensor], ds: Sequence[torch.Tensor],
         _check(u, d, s)
         if u.device != us[0].device:
             raise ValueError(f"leaves on {us[0].device} and {u.device}")
+    if out is not None:
+        if len(out) != len(us):
+            raise ValueError(f"out has {len(out)} leaves, u {len(us)}")
+        for o, u in zip(out, us):
+            _check(o, u, s)
     if us[0].device.type == "cpu":
-        return [ef_update_plain(u, d, s) for u, d in zip(us, ds)]
+        res = [ef_update_plain(u, d, s) for u, d in zip(us, ds)]
+        if out is None:
+            return res
+        for o, r in zip(out, res):
+            o.copy_(r)
+        return list(out)
     _check_device(us[0].device)
-    return _launch(list(us), list(ds), s)
+    return _launch(list(us), list(ds), s,
+                   None if out is None else list(out))

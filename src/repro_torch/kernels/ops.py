@@ -257,7 +257,8 @@ def ef_update(u: torch.Tensor, d: torch.Tensor, s) -> torch.Tensor:
     return _ef.ef_update(uf, df, s).reshape(u.shape)
 
 
-def tree_ef_update(u_tree: PyTree, d_tree: PyTree, s) -> PyTree:
+def tree_ef_update(u_tree: PyTree, d_tree: PyTree, s, *,
+                   out: Optional[PyTree] = None) -> PyTree:
     """EF residual e' = u − s·d over whole trees, one streaming pass.
 
     On the card one B2 launch per table of leaves, read and written in
@@ -266,31 +267,54 @@ def tree_ef_update(u_tree: PyTree, d_tree: PyTree, s) -> PyTree:
     sliced back into leaves. Output leaves are f32 in u's shapes. Not
     differentiable. ``DTensor`` leaves (``u`` and ``d`` placed alike)
     run on this rank's shards and come back placed as ``u``.
+
+    ``out``, a tree of contiguous f32 leaves in u's shapes (``u_tree``
+    itself may be it: each element is read before it is written), takes
+    the result instead of a new buffer and is returned; on the card B2
+    writes it directly, on the CPU the plain route's result is copied in.
+    Not for ``DTensor`` leaves.
     """
     u_leaves, d_leaves = _check_lockstep(u_tree, d_tree)
     _, treedef = tree_flatten(u_tree)
     if any(shard.is_dtensor(l) for l in u_leaves + d_leaves):
+        if out is not None:
+            raise NotImplementedError("tree_ef_update(out=) on DTensor "
+                                      "leaves")
         return tree_unflatten(treedef, _sharded_ef_update(u_leaves, d_leaves,
                                                           s))
     ru = [_ravel_f32(l) for l in u_leaves]
     rd = [_ravel_f32(l) for l in d_leaves]
+    if out is not None:
+        o_leaves, _ = _check_lockstep(u_tree, out)
+        for o in o_leaves:
+            if o.dtype != torch.float32 or not o.is_contiguous():
+                raise ValueError("tree_ef_update(out=) takes contiguous f32 "
+                                 "leaves")
     if _on_card(ru):
-        outs = _ef.ef_update_leaves(ru, rd, torch.as_tensor(
-            s, dtype=torch.float32, device=ru[0].device))
+        s = torch.as_tensor(s, dtype=torch.float32, device=ru[0].device)
+        if out is not None:
+            _ef.ef_update_leaves(ru, rd, s,
+                                 out=[o.reshape(-1) for o in o_leaves])
+            return out
+        outs = _ef.ef_update_leaves(ru, rd, s)
         return tree_unflatten(treedef, [o.reshape(l.shape)
                                         for o, l in zip(outs, u_leaves)])
     pieces: List[List[torch.Tensor]] = [[] for _ in u_leaves]
     for chunk in _chunk_plan([v.numel() for v in ru], TREE_CHUNK_ELEMS):
-        out = ef_update(_gather_chunk(ru, chunk), _gather_chunk(rd, chunk), s)
+        res = ef_update(_gather_chunk(ru, chunk), _gather_chunk(rd, chunk), s)
         pos = 0
         for i, off, take in chunk:
-            pieces[i].append(out[pos:pos + take])
+            pieces[i].append(res[pos:pos + take])
             pos += take
     new_leaves = [
         (_cat(ps) if ps else torch.zeros((0,), dtype=torch.float32,
                                          device=l.device)).reshape(l.shape)
         for ps, l in zip(pieces, u_leaves)
     ]
+    if out is not None:
+        for o, n in zip(o_leaves, new_leaves):
+            o.copy_(n)
+        return out
     return tree_unflatten(treedef, new_leaves)
 
 

@@ -12,7 +12,9 @@ import torch
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
                             device=device) / head_dim
-    return 1.0 / (torch.tensor(theta, dtype=torch.float32, device=device)
+    # theta as a device fill, never a host-to-device copy, so a CUDA graph
+    # can capture it
+    return 1.0 / (torch.full((), theta, dtype=torch.float32, device=device)
                   ** exponent)
 
 

@@ -289,7 +289,11 @@ class LM:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for pp in _periods(params["layers"], self.n_periods):
             if remat:
-                x, a = checkpoint(period_fn, pp, x, use_reentrant=False)
+                # no RNG state stashed: the periods draw no random numbers,
+                # and the stash (a read of the CUDA generator's offset)
+                # cannot be captured into the encode's CUDA graph
+                x, a = checkpoint(period_fn, pp, x, use_reentrant=False,
+                                  preserve_rng_state=False)
             else:
                 x, a = period_fn(pp, x)
             aux = aux + a
