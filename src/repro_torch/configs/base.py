@@ -3,10 +3,13 @@
 A copy of ``ModelConfig``, ``CompressorConfig``, ``FLConfig`` and
 ``ShapeConfig`` (with the ``INPUT_SHAPES`` it names) from the JAX
 package's ``configs/base.py``, field for field, so a run's
-configuration reads the same in both packages. Every architecture of
-``ARCH_IDS`` has a module in this package defining ``CONFIG`` (the
-published widths) and ``smoke_config()`` (the reduced CPU-test variant),
-field for field the reference's; ``get_config``/``get_smoke_config``
+configuration reads the same in both packages; ``ModelConfig`` adds the
+port-only fields of ``PORT_FIELDS`` after the reference's, at defaults
+that leave a config the reference's. Every architecture of ``ARCH_IDS``
+has a module in this package defining ``CONFIG`` (the published widths)
+and ``smoke_config()`` (the reduced CPU-test variant), field for field
+the reference's; ``PORT_ARCH_IDS`` lists the port's own architectures
+(no JAX twin), resolved the same way; ``get_config``/``get_smoke_config``
 resolve dash or underscore ids.
 """
 from __future__ import annotations
@@ -67,6 +70,23 @@ class ModelConfig:
     # --- scan/remat ---
     remat: bool = True
     source: str = ""                 # citation
+    # --- port-only (no JAX twin; every ARCH_IDS config leaves them at
+    # PORT_FIELDS' defaults) ---
+    # multi-head latent attention (block type "mla"), the un-absorbed
+    # training form: q to H x (nope + rope), x to a kv latent + one shared
+    # rope key, the normed latent to H x (nope + v)
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    first_dense_layers: int = 0      # dense-FFN layers ahead of the periods
+    dense_d_ff: int = 0              # their FFN width (0 -> d_ff)
+    # "softmax": the capacity route; "sigmoid": the dropless route
+    # (sigmoid scores, bias-steered choice, weights normalised and scaled)
+    router: str = "softmax"
+    routed_scaling_factor: float = 1.0
+    held_experts: int = 0            # routed experts held here (0 -> all)
+    held_expert_start: int = 0       # the first held expert's index
 
     @property
     def resolved_head_dim(self) -> int:
@@ -78,8 +98,22 @@ class ModelConfig:
     def pattern_for(self) -> Tuple[str, ...]:
         return self.block_pattern
 
+    @property
+    def num_held_experts(self) -> int:
+        return self.held_experts or self.num_experts
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+# the port-only fields of ``ModelConfig`` and their defaults, which leave a
+# config the JAX package's (the ten ``ARCH_IDS`` configs hold them)
+PORT_FIELDS = {f.name: f.default for f in dataclasses.fields(ModelConfig)
+               if f.name in ("kv_lora_rank", "qk_nope_head_dim",
+                             "qk_rope_head_dim", "v_head_dim",
+                             "first_dense_layers", "dense_d_ff", "router",
+                             "routed_scaling_factor", "held_experts",
+                             "held_expert_start")}
 
 
 # ---------------------------------------------------------------------------
@@ -154,6 +188,12 @@ ARCH_IDS = [
     "recurrentgemma-2b",
 ]
 
+# architectures of the port alone, with no JAX twin (outside the JAX
+# mirror ``ARCH_IDS`` and its parity suites)
+PORT_ARCH_IDS = [
+    "moonlight-16b-a3b",
+]
+
 
 def _module_name(arch_id: str) -> str:
     return arch_id.replace("-", "_").replace(".", "_")
@@ -161,8 +201,9 @@ def _module_name(arch_id: str) -> str:
 
 def _config_module(arch_id: str):
     name = _module_name(arch_id)
-    if name not in {_module_name(a) for a in ARCH_IDS}:
-        raise ValueError(f"unknown arch {arch_id!r}; one of {ARCH_IDS}")
+    known = ARCH_IDS + PORT_ARCH_IDS
+    if name not in {_module_name(a) for a in known}:
+        raise ValueError(f"unknown arch {arch_id!r}; one of {known}")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

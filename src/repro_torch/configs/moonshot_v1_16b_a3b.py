@@ -1,7 +1,11 @@
 """moonshot-v1-16b-a3b — Moonlight-style MoE [hf:moonshotai/Moonlight-16B-A3B].
 
-48L, d_model=2048, 16H (kv=16 = MHA), per-expert d_ff=1408, 64 experts top-6
-plus 2 shared experts (DeepSeek-V3-style), vocab=163840.
+The JAX package's assignment twin, mirrored field for field: 48 MHA layers
+(d_model=2048, 16H, kv=16), per-expert d_ff=1408, 64 experts top-6 plus 2
+shared experts behind a softmax router with capacity, vocab=163840. It is
+not the published shape; the published model (27 layers, latent
+attention, a sigmoid-routed dropless expert layer) is
+``moonlight_16b_a3b.py``.
 """
 from repro_torch.configs.base import ModelConfig
 

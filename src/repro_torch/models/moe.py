@@ -1,4 +1,8 @@
-"""Mixture-of-Experts FFN: top-k router + capacity-based one-hot dispatch.
+"""Mixture-of-Experts FFN: the capacity route (top-k softmax router and
+one-hot dispatch) and the dropless route (sigmoid router, grouped
+products).
+
+**The capacity route** (``moe_ffn``; the JAX twins' MoE configs).
 
 The JAX package's ``models/moe.py``: the router runs in f32 and keeps the
 top k of the softmax (ties to the lower expert index, as ``lax.top_k``),
@@ -11,6 +15,34 @@ reference's unfolded (B, S·k, E, C) ones are k times larger); the
 experts' SwiGLU runs as three (E, ...) batched products, and optional
 shared experts as one dense SwiGLU of width ``d_ff · shared_experts``
 added to the routed output.
+
+**The dropless route** (``moe_dropless``; DeepSeek-V3's ``noaux_tc`` with
+one group, ``router="sigmoid"``). The router's f32 sigmoid scores over all
+E experts; each token's k experts are the top k of score + ``score_bias``
+(stable order, a tie to the lower index), weighted by their bare scores
+normalised over the k and times ``routed_scaling_factor``. The bias
+steers the choice alone: it enters the graph through a zero product, so
+its gradient is zero (not missing). No capacity, nothing dropped, no
+auxiliary loss.
+
+Under expert parallelism a layer holds the experts ``[lo, lo + n)`` of
+the E (``w_in``/``w_gate``/``w_out`` with n rows) and computes only their
+part of the output: the (token, slot) pairs routed to a held expert,
+sorted by expert into a static (T·k, d) buffer whose first rows are
+held, run once through each held expert's SwiGLU by three grouped
+products (``torch._grouped_mm`` over the held offsets: work in proportion
+to the held slots); each token then gathers its k slot outputs, zero for
+a slot outside the held experts, weighs and sums them in f32 (a gather
+and a sum over k: no atomic adds). Shapes never depend on the data and
+nothing is read back to the host. ``_grouped_mm`` leaves the rows past
+the last offset unwritten in the forward and gives them a nonzero
+gradient in the double backward, so every buffer it reads is cut to the
+held rows by ``where`` (never a view of x, never a multiply, which would
+carry a NaN through).
+
+Each call's routed part is one ``moe.routed`` span (``obs.layer_span``);
+it counts its slots, ``moe.slots``, and each held expert's,
+``moe.slots.held.<j>`` (``obs.layer_count``, on the device).
 """
 from __future__ import annotations
 
@@ -22,6 +54,7 @@ import torch.nn.functional as F
 from repro_torch.models import layers
 from repro_torch.models import params as P_
 from repro_torch.models import shard
+from repro_torch.obs import layer_count, layer_span
 
 
 class MoEOut(NamedTuple):
@@ -30,13 +63,21 @@ class MoEOut(NamedTuple):
 
 
 def moe_init(gen: torch.Generator, d: int, ff: int, num_experts: int,
-             shared_experts: int = 0, dtype=torch.float32) -> Dict:
+             shared_experts: int = 0, dtype=torch.float32, *,
+             held: int = 0, score_bias: bool = False) -> Dict:
+    """``held`` experts' weights (0: all ``num_experts``); the router stays
+    ``num_experts`` wide. ``score_bias``: the dropless route's (E,) f32
+    selection bias, zeros."""
+    n = held or num_experts
     p = {
         "router": P_.dense_init(gen, d, (d, num_experts), torch.float32),
-        "w_in": P_.dense_init(gen, d, (num_experts, d, ff), dtype),
-        "w_gate": P_.dense_init(gen, d, (num_experts, d, ff), dtype),
-        "w_out": P_.dense_init(gen, ff, (num_experts, ff, d), dtype),
+        "w_in": P_.dense_init(gen, d, (n, d, ff), dtype),
+        "w_gate": P_.dense_init(gen, d, (n, d, ff), dtype),
+        "w_out": P_.dense_init(gen, ff, (n, ff, d), dtype),
     }
+    if score_bias:
+        p["score_bias"] = torch.zeros((num_experts,), dtype=torch.float32,
+                                      device=gen.device)
     if shared_experts:
         p["shared"] = layers.ffn_init(gen, d, ff * shared_experts, dtype)
     return p
@@ -172,3 +213,90 @@ def moe_ffn(p: Dict, x: torch.Tensor, *, experts_per_token: int,
     if "shared" in p:
         y = y + layers.ffn(p["shared"], x)
     return MoEOut(y, aux_coef * aux)
+
+
+# ---------------------------------------------------------------------------
+# the dropless route
+# ---------------------------------------------------------------------------
+
+
+def sigmoid_route(p: Dict, x: torch.Tensor, k: int, scaling: float):
+    """(weights (.., k) f32, experts (.., k) int64) of x (.., d): the top
+    k of sigmoid score + ``score_bias``, weighted by the bare scores
+    normalised over the k, times ``scaling``."""
+    bias = p["score_bias"]
+    logits = x.to(torch.float32) @ p["router"].to(torch.float32)
+    # + 0·bias: the bias in the graph with a zero gradient
+    scores = torch.sigmoid(logits) + 0.0 * bias
+    _, top_e = top_k(scores.detach() + bias.detach(), k)
+    w = torch.gather(scores, -1, top_e)
+    w = w / (torch.sum(w, dim=-1, keepdim=True) + 1e-20) * scaling
+    return w, top_e
+
+
+def held_layout(top_e: torch.Tensor, lo: int, n: int):
+    """The static sort of T·k (token, slot) pairs by held expert.
+
+    ``top_e`` (T, k) -> (order (T·k,): the slots in row order, held first
+    by expert then in (token, slot) order; slot_row (T·k,): each slot's
+    row, its inverse; offs (n,) int32: the held rows' cumulative ends;
+    counts (n,): each held expert's slots)."""
+    j = top_e.reshape(-1) - lo
+    key = torch.where((j >= 0) & (j < n), j, n)
+    order = torch.argsort(key, stable=True)
+    slot_row = torch.empty_like(order).scatter_(
+        0, order, torch.arange(order.numel(), device=order.device))
+    counts = torch.sum(key[:, None] == torch.arange(n, device=key.device),
+                       dim=0)
+    offs = torch.cumsum(counts, dim=0).to(torch.int32)
+    return order, slot_row, offs, counts
+
+
+def grouped_swiglu(a: torch.Tensor, p: Dict, offs: torch.Tensor
+                   ) -> torch.Tensor:
+    """Rows ``a`` (R, d), sorted by held expert, through each one's SwiGLU:
+    rows ``[offs[j-1], offs[j])`` by expert j; rows past ``offs[-1]`` come
+    out zero, with zero gradient of every order (the input and each
+    product's output cut to the held rows by ``where``)."""
+    dt = a.dtype
+    held = (torch.arange(a.shape[0], device=a.device)
+            < offs[-1])[:, None]
+    zero = a.new_zeros(())
+
+    def mm(t, w):
+        return torch.where(held, torch._grouped_mm(t, w.to(dt), offs), zero)
+
+    a = torch.where(held, a, zero)
+    return mm(F.silu(mm(a, p["w_gate"])) * mm(a, p["w_in"]), p["w_out"])
+
+
+def routed_experts(p: Dict, x: torch.Tensor, *, experts_per_token: int,
+                   scaling: float, held_start: int = 0) -> torch.Tensor:
+    """The held experts' part of the routed output, x (B, S, d) ->
+    (B, S, d)."""
+    if _expert_split(p) is not None or shard.is_dtensor(x):
+        raise NotImplementedError(
+            "the dropless route runs on plain tensors only (no tensor "
+            "parallelism)")
+    with layer_span("moe.routed", x):
+        k, n = experts_per_token, p["w_in"].shape[0]
+        xt = x.reshape(-1, x.shape[-1])
+        w, top_e = sigmoid_route(p, xt, k, scaling)
+        order, slot_row, offs, counts = held_layout(top_e, held_start, n)
+        layer_count("moe.slots", top_e.numel(), x)
+        layer_count("moe.slots.held", counts, x)
+        y = grouped_swiglu(xt[order // k], p, offs)
+        slots = y[slot_row].view(*top_e.shape, -1).to(torch.float32)
+        out = torch.sum(slots * w[..., None], dim=-2)
+        return out.to(x.dtype).view(x.shape)
+
+
+def moe_dropless(p: Dict, x: torch.Tensor, *, experts_per_token: int,
+                 scaling: float, held_start: int = 0) -> torch.Tensor:
+    """x: (B, S, d) -> (B, S, d): the held routed experts' part plus the
+    shared experts (one SwiGLU)."""
+    y = routed_experts(p, x, experts_per_token=experts_per_token,
+                       scaling=scaling, held_start=held_start)
+    if "shared" in p:
+        y = y + layers.ffn(p["shared"], x)
+    return y

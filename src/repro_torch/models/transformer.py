@@ -5,7 +5,10 @@ Layers are grouped into *periods* = one repetition of ``cfg.block_pattern``
 leading ``n_periods`` axis, in the JAX package's layout (``"layers"``, keyed
 ``"0"``…), so its ``LM.init`` tree loads unchanged; here the periods run as
 a Python loop over that axis. A non-divisible remainder becomes ``tail``
-blocks (recurrentgemma: 26 = 3·8 + 2).
+blocks (recurrentgemma: 26 = 3·8 + 2). ``cfg.first_dense_layers`` blocks
+of the pattern's first type run ahead of the periods as ``lead`` blocks
+with a dense FFN of width ``cfg.dense_d_ff`` (moonlight: 1 dense, then 26
+MoE periods).
 
 Big-vocab discipline: the (B, S, V) logits never materialize. Training CE
 walks the sequence in chunks of ``LOSS_CHUNK`` positions (each recomputed
@@ -15,18 +18,24 @@ last position and decode a single token.
 With ``cfg.remat`` and autograd recording, each period runs under
 ``torch.utils.checkpoint`` (non-reentrant, so grad-of-grad works), the
 counterpart of the reference's ``jax.checkpoint(period_fn)``: the backward
-recomputes a period's forward instead of keeping its activations.
+recomputes a period's forward instead of keeping its activations; so does
+each lead block.
 
 Synthetic features (3SFC): ``syn_loss`` takes soft input embeddings
 (n, L, d) and soft labels (dense or low-rank over the vocab).
 
 The blocks: ``"attn"`` (attention + SwiGLU FFN, or + MoE when
-``cfg.num_experts``), ``"ssm"`` (the mamba2 mixer) and ``"rec"`` (RG-LRU +
-FFN). Multimodal prefixes (``prefix_embeds`` (B, T_mm, d)) are
-concatenated in front of the token embeddings; the loss masks them out.
+``cfg.num_experts``), ``"mla"`` (latent attention, ``models/mla.py``, +
+the same FFN or MoE; training only, no cache), ``"ssm"`` (the mamba2
+mixer) and ``"rec"`` (RG-LRU + FFN). The MoE is the capacity route, or
+with ``cfg.router == "sigmoid"`` the dropless route over the held
+experts (``models/moe.py``; no auxiliary loss). Multimodal prefixes
+(``prefix_embeds`` (B, T_mm, d)) are concatenated in front of the token
+embeddings; the loss masks them out.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -37,6 +46,7 @@ from repro_torch.core.threesfc import SynData, soft_xent
 from repro_torch.core.tree import tree_flatten, tree_map, tree_unflatten
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import params as P_
 from repro_torch.models import rglru as rglru_mod
@@ -53,10 +63,11 @@ LOSS_CHUNK = 512          # sequence-chunked CE block size
 
 def pattern_layout(cfg: ModelConfig
                    ) -> Tuple[Tuple[str, ...], int, Tuple[str, ...]]:
-    """(pattern, n_periods, tail_pattern)."""
+    """(pattern, n_periods, tail_pattern) of the layers after the lead."""
     pat = tuple(cfg.block_pattern)
-    n_periods = cfg.num_layers // len(pat)
-    tail = pat[: cfg.num_layers % len(pat)]
+    rest = cfg.num_layers - cfg.first_dense_layers
+    n_periods = rest // len(pat)
+    tail = pat[: rest % len(pat)]
     return pat, n_periods, tail
 
 
@@ -79,22 +90,31 @@ def _cache_len(cfg: ModelConfig, cache_len: int) -> int:
 
 
 def _block_init(gen: torch.Generator, cfg: ModelConfig, btype: str,
-                dtype) -> Dict:
+                dtype, dense: bool = False) -> Dict:
+    """``dense``: a lead block, its FFN ``cfg.dense_d_ff`` wide."""
     d, dev = cfg.d_model, gen.device
-    if btype == "attn":
-        p = {
-            "ln1": layers.rmsnorm_init(d, dtype, dev),
-            "attn": attn_mod.attn_init(gen, d, cfg.num_heads,
-                                       cfg.num_kv_heads,
-                                       cfg.resolved_head_dim, cfg.qkv_bias,
-                                       dtype),
-            "ln2": layers.rmsnorm_init(d, dtype, dev),
-        }
-        if cfg.num_experts:
-            p["moe"] = moe_mod.moe_init(gen, d, cfg.d_ff, cfg.num_experts,
-                                        cfg.shared_experts, dtype)
+    if btype in ("attn", "mla"):
+        p = {"ln1": layers.rmsnorm_init(d, dtype, dev)}
+        if btype == "attn":
+            p["attn"] = attn_mod.attn_init(gen, d, cfg.num_heads,
+                                           cfg.num_kv_heads,
+                                           cfg.resolved_head_dim,
+                                           cfg.qkv_bias, dtype)
         else:
-            p["ffn"] = layers.ffn_init(gen, d, cfg.d_ff, dtype)
+            p["mla"] = mla_mod.mla_init(gen, d, cfg.num_heads,
+                                        cfg.kv_lora_rank,
+                                        cfg.qk_nope_head_dim,
+                                        cfg.qk_rope_head_dim,
+                                        cfg.v_head_dim, dtype)
+        p["ln2"] = layers.rmsnorm_init(d, dtype, dev)
+        if cfg.num_experts and not dense:
+            p["moe"] = moe_mod.moe_init(
+                gen, d, cfg.d_ff, cfg.num_experts, cfg.shared_experts, dtype,
+                held=cfg.held_experts, score_bias=cfg.router == "sigmoid")
+        else:
+            p["ffn"] = layers.ffn_init(
+                gen, d, (cfg.dense_d_ff or cfg.d_ff) if dense else cfg.d_ff,
+                dtype)
         return p
     if btype == "ssm":
         dims = ssm_mod.SSMDims.from_cfg(cfg)
@@ -113,8 +133,15 @@ def _block_init(gen: torch.Generator, cfg: ModelConfig, btype: str,
 
 def _ffn_or_moe(cfg: ModelConfig, p: Dict, z: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """An attention block's second half on its normed input: (y, aux)."""
-    if cfg.num_experts:
+    """An attention block's second half on its normed input: (y, aux),
+    aux None where the block adds none (a dense FFN, the dropless
+    route)."""
+    if "moe" in p and cfg.router == "sigmoid":
+        return moe_mod.moe_dropless(
+            p["moe"], z, experts_per_token=cfg.experts_per_token,
+            scaling=cfg.routed_scaling_factor,
+            held_start=cfg.held_expert_start), None
+    if "moe" in p:
         out = moe_mod.moe_ffn(p["moe"], z,
                               experts_per_token=cfg.experts_per_token,
                               capacity_factor=cfg.capacity_factor,
@@ -128,10 +155,14 @@ def _block_forward(cfg: ModelConfig, btype: str, p: Dict, x: torch.Tensor
     """Full-sequence forward. Returns (x, aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     eps = cfg.norm_eps
-    if btype == "attn":
-        x = x + attn_mod.attention(p["attn"], layers.rmsnorm(p["ln1"], x, eps),
-                                   theta=cfg.rope_theta,
-                                   window=cfg.attn_window)
+    if btype in ("attn", "mla"):
+        z = layers.rmsnorm(p["ln1"], x, eps)
+        if btype == "attn":
+            x = x + attn_mod.attention(p["attn"], z, theta=cfg.rope_theta,
+                                       window=cfg.attn_window)
+        else:
+            x = x + mla_mod.mla(p["mla"], z, theta=cfg.rope_theta,
+                                rope_dim=cfg.qk_rope_head_dim, eps=eps)
         y, a = _ffn_or_moe(cfg, p, layers.rmsnorm(p["ln2"], x, eps))
         return x + y, aux if a is None else aux + a
     if btype == "ssm":
@@ -147,8 +178,15 @@ def _block_forward(cfg: ModelConfig, btype: str, p: Dict, x: torch.Tensor
     raise _block_error(btype)
 
 
+def _no_serving(btype: str) -> Exception:
+    return NotImplementedError(f"block type {btype!r} has no decode cache "
+                               f"(training only)")
+
+
 def _block_cache(cfg: ModelConfig, btype: str, batch: int, cache_len: int,
                  dtype, device):
+    if btype == "mla":
+        raise _no_serving(btype)
     if btype == "attn":
         return attn_mod.init_cache(batch, _cache_len(cfg, cache_len),
                                    cfg.num_kv_heads, cfg.resolved_head_dim,
@@ -166,6 +204,8 @@ def _block_prefill(cfg: ModelConfig, btype: str, p: Dict, x: torch.Tensor,
                    cache_len: int):
     """Full forward + populated cache for this block."""
     eps = cfg.norm_eps
+    if btype == "mla":
+        raise _no_serving(btype)
     if btype == "attn":
         h, kv = attn_mod.prefill_cache(
             p["attn"], layers.rmsnorm(p["ln1"], x, eps),
@@ -198,6 +238,8 @@ def _block_prefill(cfg: ModelConfig, btype: str, p: Dict, x: torch.Tensor,
 def _block_decode(cfg: ModelConfig, btype: str, p: Dict, x_t: torch.Tensor,
                   cache, t):
     eps = cfg.norm_eps
+    if btype == "mla":
+        raise _no_serving(btype)
     if btype == "attn":
         h, cache = attn_mod.decode_attention(
             p["attn"], layers.rmsnorm(p["ln1"], x_t, eps), cache, t,
@@ -242,6 +284,7 @@ class LM:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
         self.pattern, self.n_periods, self.tail = pattern_layout(cfg)
+        self.lead = self.pattern[:1] * cfg.first_dense_layers
         self.param_dtype = P_.dtype_of(cfg.param_dtype)
         self.dtype = P_.dtype_of(cfg.dtype)
 
@@ -266,6 +309,11 @@ class LM:
             params["tail"] = {str(i): _block_init(gen, cfg, bt,
                                                   self.param_dtype)
                               for i, bt in enumerate(self.tail)}
+        if self.lead:
+            params["lead"] = {str(i): _block_init(gen, cfg, bt,
+                                                  self.param_dtype,
+                                                  dense=True)
+                              for i, bt in enumerate(self.lead)}
         if not cfg.tie_embeddings:
             params["lm_head"] = layers.lm_head_init(
                 gen, cfg.d_model, cfg.vocab_size, self.param_dtype)
@@ -287,6 +335,13 @@ class LM:
 
         remat = cfg.remat and torch.is_grad_enabled()
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, bt in enumerate(self.lead):
+            fn = functools.partial(_block_forward, cfg, bt)
+            p = params["lead"][str(i)]
+            x, a = (checkpoint(fn, p, x, use_reentrant=False,
+                               preserve_rng_state=False)
+                    if remat else fn(p, x))
+            aux = aux + a
         for pp in _periods(params["layers"], self.n_periods):
             if remat:
                 # no RNG state stashed: the periods draw no random numbers,

@@ -26,7 +26,10 @@ settled at the round's host sync (``RoundEngine.run_block``, the socket
 worker) into ``d0``/``d1`` on the same clock, with no device read of a
 value and no extra sync. ``launch/train.py --profile`` captures the
 device's own timeline via ``torch.profiler``; with ``--trace`` the spans
-go into that file too.
+go into that file too. Model layers open spans of their own
+(``layer_span``: ``mla.attention``, ``moe.routed``) and add device-side
+counts (``layer_count``: ``moe.slots``, ``moe.slots.held.<j>``), both
+silent with the tracer off and during a CUDA-graph capture.
 """
 from repro_torch.obs.log import get_logger
 from repro_torch.obs.meters import (Counter, Gauge, Histogram,
@@ -34,11 +37,13 @@ from repro_torch.obs.meters import (Counter, Gauge, Histogram,
                                     set_registry)
 from repro_torch.obs.trace import (Span, Tracer, add_to_chrome_trace,
                                    configure_tracer, get_tracer,
-                                   merge_traces, now_ns, read_trace_jsonl,
-                                   set_tracer, write_chrome_trace)
+                                   layer_count, layer_span, merge_traces,
+                                   now_ns, read_trace_jsonl, set_tracer,
+                                   write_chrome_trace)
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "Span",
            "Tracer", "add_to_chrome_trace", "configure_tracer",
-           "get_logger", "get_registry", "get_tracer", "merge_traces",
+           "get_logger", "get_registry", "get_tracer", "layer_count",
+           "layer_span", "merge_traces",
            "now_ns", "read_trace_jsonl", "set_registry", "set_tracer",
            "write_chrome_trace"]

@@ -43,6 +43,16 @@ the block, over ``R``), and for device-marked names one of
 ``<name>.device_ms`` (``d1 − d0`` summed, over ``R``). ``/metrics`` and
 ``meters.json`` then show per-phase quantiles without the trace file.
 
+**Layer spans and counts.** A model layer opens its span with
+:func:`layer_span` and adds its counts with :func:`layer_count`: both do
+nothing with the tracer off, and nothing while the current stream
+captures a CUDA graph (a replay runs no host code, so a span or a count
+recorded in the capture would stand for every replay but be seen once).
+A count given as a device tensor is added on the device into the
+tracer's accumulator and read back once, at the next settle, which comes
+after the host sync its caller makes anyway; it lands in the registry's
+counter ``<name>`` (a scalar) or ``<name>.<i>`` (element i).
+
 Spans carry a ``proc`` label ("server", "client-3", ...) identifying the
 recording process. Workers drain their rings and piggyback the dicts on
 ``MSG_METRIC``; the server shifts them by a heartbeat-derived clock
@@ -176,6 +186,8 @@ class Tracer:
         # spans closed since the last settle, and their device marks
         self._block: deque = deque(maxlen=self.capacity)
         self._pending: List[Tuple[Dict[str, Any], Any, Any]] = []
+        # counts since the last settle: host ints and device accumulators
+        self._counts: Dict[str, Any] = {}
         self.dropped = 0
         self.unsettled = 0
 
@@ -194,6 +206,21 @@ class Tracer:
             return
         self._append({"kind": "event", "name": name, "proc": self.proc,
                       "tid": self._thread()[0], "t": self._clock(), **tags})
+
+    def count(self, name: str, value) -> None:
+        """Add ``value`` (an int, or an integer tensor of per-element
+        counts, added on its device) to ``name``'s count, folded into the
+        registry at the next settle."""
+        if not self.enabled:
+            return
+        with self._lock:
+            acc = self._counts.get(name)
+            if isinstance(value, torch.Tensor):
+                value = value.detach().to(torch.int64)
+                self._counts[name] = (value.clone() if acc is None
+                                      else acc.add_(value))
+            else:
+                self._counts[name] = (acc or 0) + int(value)
 
     def _thread(self) -> Tuple[int, List[Span]]:
         """This thread's row index and its stack of open spans."""
@@ -248,7 +275,22 @@ class Tracer:
                 missed += 1
         self.unsettled += missed
         self._fold(block, max(int(rounds), 1))
+        self._fold_counts()
         return missed
+
+    def _fold_counts(self) -> None:
+        """The counts since the last settle into the registry's counters:
+        one read of each device accumulator, the device already past it."""
+        with self._lock:
+            counts, self._counts = self._counts, {}
+        reg = get_registry()
+        for name, acc in counts.items():
+            vals = acc.tolist() if isinstance(acc, torch.Tensor) else acc
+            if isinstance(vals, list):
+                for i, v in enumerate(vals):
+                    reg.counter(f"{name}.{i}").inc(v)
+            else:
+                reg.counter(name).inc(vals)
 
     def _fold(self, block: List[Dict[str, Any]], rounds: int) -> None:
         host: Dict[str, float] = {}
@@ -417,6 +459,32 @@ def set_tracer(tracer: Tracer) -> Tracer:
     global _GLOBAL
     _GLOBAL = tracer
     return tracer
+
+
+def _silent(like: torch.Tensor) -> bool:
+    """Whether a layer records nothing: the tracer off, or ``like``'s
+    stream capturing a CUDA graph."""
+    if not _GLOBAL.enabled:
+        return True
+    return (like.device.type == "cuda"
+            and torch.cuda.is_current_stream_capturing())
+
+
+def layer_span(name: str, like: torch.Tensor):
+    """A span around a model layer's forward call, marked on the device of
+    ``like`` (an input of the call) where that is a CUDA device; the
+    shared no-op span where the layer is silent (``_silent``)."""
+    if _silent(like):
+        return _NOOP_SPAN
+    dev = like.device if like.device.type == "cuda" else None
+    return _GLOBAL.span(name, device=dev)
+
+
+def layer_count(name: str, value, like: torch.Tensor) -> None:
+    """``Tracer.count`` on the process tracer, unless the layer is silent
+    (``_silent``)."""
+    if not _silent(like):
+        _GLOBAL.count(name, value)
 
 
 def configure_tracer(enabled: bool, proc: str = "main",

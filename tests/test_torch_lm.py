@@ -97,15 +97,19 @@ def _assert_trees_close(got, want, **tol):
 
 
 def test_model_config_is_a_field_for_field_copy():
+    """The reference's fields in its order with its defaults, then the
+    port-only ones (``PORT_FIELDS``) at defaults that leave a config the
+    reference's."""
     ours = [(f.name, f.default) for f in dataclasses.fields(cbase.ModelConfig)]
     ref = [(f.name, f.default) for f in dataclasses.fields(JModelConfig)]
-    assert ours == ref
+    assert ours == ref + list(cbase.PORT_FIELDS.items())
     assert cbase.ModelConfig.__dataclass_fields__["use_pallas_ssd"].default \
         is False
     for ours_cfg, ref_cfg in ((mamba2_370m.CONFIG, jmamba.CONFIG),
                               (mamba2_370m.smoke_config(),
                                jmamba.smoke_config())):
-        assert dataclasses.asdict(ours_cfg) == dataclasses.asdict(ref_cfg)
+        assert dataclasses.asdict(ours_cfg) == {
+            **dataclasses.asdict(ref_cfg), **cbase.PORT_FIELDS}
     assert cbase.get_config("mamba2_370m") == mamba2_370m.CONFIG
 
 

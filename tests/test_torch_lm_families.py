@@ -43,11 +43,12 @@ torch.set_num_threads(2)
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_get_config_equals_thereference(arch):
     """Field for field, the published config and the smoke config, by dash
-    and underscore ids."""
+    and underscore ids; the port-only fields at their defaults."""
     for ours, ref in ((cbase.get_config(arch), jbase.get_config(arch)),
                       (cbase.get_smoke_config(arch),
                        jbase.get_smoke_config(arch))):
-        assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+        assert dataclasses.asdict(ours) == {**dataclasses.asdict(ref),
+                                            **cbase.PORT_FIELDS}
     under = arch.replace("-", "_").replace(".", "_")
     assert cbase.get_config(under) == cbase.get_config(arch)
 

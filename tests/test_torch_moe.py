@@ -177,3 +177,200 @@ def test_moe_respects_router():
     want = (torch.nn.functional.silu(g) * h) @ tp["w_out"][2]
     np.testing.assert_allclose(out.y.numpy(), want.numpy(), rtol=1e-4,
                                atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the dropless route (port-only: no JAX twin; held to a per-expert loop)
+# ---------------------------------------------------------------------------
+
+
+def _dropless_setup(E=8, n=4, lo=2, d=16, ff=8, shared=1, seed=0,
+                    bias_std=0.1):
+    gen = torch.Generator().manual_seed(seed)
+    p = moe_mod.moe_init(gen, d, ff, E, shared, held=n, score_bias=True)
+    p["score_bias"] = bias_std * torch.randn(E, generator=gen)
+    x = torch.randn((2, 12, d), generator=gen)
+    return p, x, lo
+
+
+def _loop_ref(p, x, k, scaling, lo):
+    """The held experts' part by a loop over experts on the tokens that
+    chose each (boolean selection), summed per token in f32."""
+    d = x.shape[-1]
+    xt = x.reshape(-1, d)
+    bias = p["score_bias"]
+    scores = torch.sigmoid(xt.float() @ p["router"].float()) + 0.0 * bias
+    top = torch.sort(scores.detach() + bias, dim=-1, descending=True,
+                     stable=True).indices[:, :k]
+    w = torch.gather(scores, -1, top)
+    w = w / (w.sum(-1, keepdim=True) + 1e-20) * scaling
+    out = torch.zeros_like(xt, dtype=torch.float32)
+    for j in range(p["w_in"].shape[0]):
+        hit = top == lo + j
+        rows = hit.any(-1)
+        xe = xt[rows]
+        ye = (torch.nn.functional.silu(xe @ p["w_gate"][j])
+              * (xe @ p["w_in"][j])) @ p["w_out"][j]
+        out = out.index_put((rows,), ye * (w * hit).sum(-1)[rows][:, None],
+                            accumulate=True)
+    return out.view(x.shape).to(x.dtype)
+
+
+def _routed(p, x, lo, k=3, scaling=2.446):
+    return moe_mod.routed_experts(p, x, experts_per_token=k, scaling=scaling,
+                                  held_start=lo)
+
+
+def _grads_of_every_order(fn, p, x):
+    """(y, first-order grads of (x, leaves), grads of the grads' squared
+    norm) of a scalar of ``fn``."""
+    xs = x.clone().requires_grad_(True)
+    ps = {k: (v.clone().requires_grad_(True) if torch.is_tensor(v) else v)
+          for k, v in p.items() if k != "shared"}
+    y = fn(ps, xs)
+    loss = torch.sum(torch.sin(y))
+    names = sorted(ps)
+    leaves = [xs] + [ps[k] for k in names]
+    g = torch.autograd.grad(loss, leaves, create_graph=True)
+    gg = torch.autograd.grad(sum(torch.sum(t * t) for t in g), leaves,
+                             allow_unused=True, materialize_grads=True)
+    return y, g, gg
+
+
+@pytest.mark.parametrize("E,n,lo,k", [(8, 4, 2, 3), (8, 8, 0, 2),
+                                      (16, 2, 14, 6), (4, 1, 0, 1)])
+def test_dropless_matches_the_per_expert_loop(E, n, lo, k):
+    """Forward, gradient and grad-of-grad of the held experts' part, by
+    ``x`` and every leaf, against the loop; the bias's gradient is zero
+    (present, not missing)."""
+    p, x, _ = _dropless_setup(E=E, n=n, lo=lo)
+    y, g, gg = _grads_of_every_order(lambda q, t: _routed(q, t, lo, k), p, x)
+    ry, rg, rgg = _grads_of_every_order(
+        lambda q, t: _loop_ref(q, t, k, 2.446, lo), p, x)
+    np.testing.assert_allclose(y.detach().numpy(), ry.detach().numpy(),
+                               **TOL)
+    for a, b in zip(g + gg, rg + rgg):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
+                                   rtol=1e-4, atol=1e-4)
+    names = sorted(k_ for k_ in p if k_ != "shared")
+    bias_g = g[1 + names.index("score_bias")]
+    assert bias_g is not None and not bias_g.any()
+
+
+def test_the_bias_moves_the_choice_not_the_weights():
+    """With the bias the choice changes on some tokens; the weights of the
+    experts both choices share are the bare scores' (normalised over the
+    chosen k), not the biased ones."""
+    p, x, _ = _dropless_setup(E=8, n=8, lo=0, bias_std=0.0)
+    xt = x.reshape(-1, x.shape[-1])
+    w0, e0 = moe_mod.sigmoid_route(p, xt, 3, 1.0)
+    p["score_bias"] = 0.3 * torch.randn(8, generator=torch.Generator()
+                                        .manual_seed(5))
+    w1, e1 = moe_mod.sigmoid_route(p, xt, 3, 1.0)
+    assert (e0 != e1).any(dim=-1).any() and (e0 == e1).all(dim=-1).any()
+    scores = torch.sigmoid(xt @ p["router"])
+    for w, e in ((w0, e0), (w1, e1)):
+        bare = torch.gather(scores, -1, e)
+        np.testing.assert_allclose(w.numpy(),
+                                   (bare / bare.sum(-1, keepdim=True))
+                                   .numpy(), rtol=1e-6)
+    biased = torch.sort(scores + p["score_bias"], dim=-1, descending=True,
+                        stable=True).indices[:, :3]
+    assert torch.equal(e1, biased)
+    same = (e0 == e1).all(dim=-1)
+    np.testing.assert_allclose(w1[same].numpy(), w0[same].numpy(),
+                               rtol=1e-6)
+
+
+def test_the_shares_of_the_experts_add_up_to_the_uncut_layer():
+    """Expert parallelism: the 8 shares of 16 experts (2 held each), and
+    the shared experts once, add up to the layer that holds all 16."""
+    E, shards, k = 16, 8, 6
+    full, x, _ = _dropless_setup(E=E, n=E, lo=0)
+    n = E // shards
+    total = moe_mod.moe_dropless(full, x, experts_per_token=k,
+                                 scaling=2.446)
+    parts = torch.zeros_like(x)
+    for s in range(shards):
+        share = dict(full, **{w: full[w][s * n:(s + 1) * n]
+                              for w in ("w_in", "w_gate", "w_out")})
+        parts = parts + moe_mod.routed_experts(share, x, experts_per_token=k,
+                                               scaling=2.446,
+                                               held_start=s * n)
+    parts = parts + layers_ffn(full["shared"], x)
+    np.testing.assert_allclose(parts.numpy(), total.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+def layers_ffn(p, x):
+    from repro_torch.models import layers
+    return layers.ffn(p, x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rows_past_the_held_slots_get_no_gradient(dtype):
+    """``torch._grouped_mm`` leaves the rows past its last offset unwritten
+    and, in the double backward, gives them a nonzero gradient; the route
+    cuts them: tokens with no held slot get exactly zero from the routed
+    part, in the forward and in gradients of both orders, and so do the
+    rows past the last offset of ``grouped_swiglu``."""
+    p, x, lo = _dropless_setup(E=8, n=2, lo=3)
+    p = {k: v.to(dtype) if k.startswith("w_") else v for k, v in p.items()}
+    x = x.to(dtype)
+    xt = x.reshape(-1, x.shape[-1])
+    _, top = moe_mod.sigmoid_route(p, xt, 2, 1.0)
+    none = ~((top >= lo) & (top < lo + 2)).any(-1)
+    assert none.any() and (~none).any()
+    y, g, gg = _grads_of_every_order(lambda q, t: _routed(q, t, lo, 2), p, x)
+    assert not y.reshape(-1, x.shape[-1])[none].any()
+    for t in (g[0], gg[0]):
+        assert torch.isfinite(t).all()
+        assert not t.reshape(-1, x.shape[-1])[none].any()
+    # the grouped products alone: 5 of 9 rows held
+    a = torch.randn(9, 16, dtype=dtype).requires_grad_(True)
+    offs = torch.tensor([2, 5], dtype=torch.int32)
+    out = moe_mod.grouped_swiglu(a, p, offs)
+    ga, = torch.autograd.grad(torch.sum(torch.sin(out)), a,
+                              create_graph=True)
+    gga, = torch.autograd.grad(torch.sum(ga * ga), a)
+    for t in (out, ga, gga):
+        assert torch.isfinite(t).all() and not t[5:].any()
+    assert out[:5].any() and gga[:5].any()
+
+
+def test_held_layout_sorts_the_slots_by_held_expert():
+    top = torch.tensor([[3, 0], [1, 3], [2, 4], [4, 1]])
+    order, slot_row, offs, counts = moe_mod.held_layout(top, 1, 3)
+    # slots (token, slot) flat: 3,0,1,3,2,4,4,1; held 1..3 as 0..2
+    assert offs.dtype == torch.int32 and offs.tolist() == [2, 3, 5]
+    assert counts.tolist() == [2, 1, 2]
+    assert order.tolist() == [2, 7, 4, 0, 3, 1, 5, 6]
+    assert torch.equal(order[slot_row], torch.arange(8))
+
+
+def test_dropless_route_traces_without_host_reads(monkeypatch):
+    """C6 for the dropless route: a train entry of the smoke Moonlight
+    (bf16, the grouped products' dtype) traces on fake tensors, so no
+    host read of a value and no shape from the data (``nonzero``, a
+    boolean mask) is in it, as test_torch_dryrun.py::test_moe_entries_trace
+    holds the capacity route."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs.base import ShapeConfig, get_smoke_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import specs as specs_lib
+    from repro_torch.utils import hlo_analyzer as H
+    monkeypatch.setattr(specs_lib, "INPUT_SHAPES", {
+        "train_4k": ShapeConfig("train_4k", 64, 8, "train")})
+    monkeypatch.setattr(specs_lib, "get_config", lambda a: get_smoke_config(
+        a).replace(dtype="bfloat16"))
+    with dryrun.fake_mesh((1, 1)) as mesh:
+        entry, args = specs_lib.make_entry("moonlight-16b-a3b", "train_4k",
+                                           mesh)
+        with FakeTensorMode():
+            fake = specs_lib.materialize(args, "cpu")
+            tr = H.record(entry, *fake)
+    assert H.analyze(tr).flops > 0
+    ops = [o.op for o in tr.ops]
+    assert any("grouped_mm" in o for o in ops)
+    assert not any("nonzero" in o or "masked_select" in o for o in ops)

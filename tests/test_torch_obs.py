@@ -363,6 +363,64 @@ def traced(monkeypatch):
     return install
 
 
+def test_layer_spans_and_counts_silent_off_and_in_capture(traced,
+                                                         monkeypatch):
+    """``layer_span``/``layer_count``: nothing with the tracer off; with it
+    on a span marked on a CUDA input's device and a count added, but
+    nothing while the current stream captures a CUDA graph."""
+    from types import SimpleNamespace
+
+    from repro_torch.obs import layer_count, layer_span
+    cpu = torch.zeros(2)
+    traced(Tracer(enabled=False))
+    assert layer_span("mla.attention", cpu) is _NOOP_SPAN
+    layer_count("moe.slots", 5, cpu)
+    t, now = _marked_tracer([1, 2, 3, 4])
+    reg = traced(t)
+    cuda = SimpleNamespace(device=torch.device("cuda"))
+    capturing = {"on": True}
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: capturing["on"])
+    assert layer_span("mla.attention", cuda) is _NOOP_SPAN
+    layer_count("moe.slots", 5, cuda)
+    assert now["marks"] == 0 and t._counts == {}
+    capturing["on"] = False
+    with layer_span("mla.attention", cuda):
+        pass
+    with layer_span("moe.routed", cpu):          # a CPU input: no marks
+        pass
+    layer_count("moe.slots", 5, cuda)
+    assert now["marks"] == 2
+    t.settle(*t.sync_point("dev"))
+    spans = {r["name"]: r for r in t.drain()}
+    assert "d0" in spans["mla.attention"] and "d0" not in spans["moe.routed"]
+    assert reg.snapshot()["counters"] == {"moe.slots": 5}
+
+
+def test_device_counts_fold_into_counters_at_settle(traced):
+    """Counts accumulate (ints on the host, tensors on their device) until
+    a settle reads each once into the registry: a scalar as ``name``, a
+    vector as ``name.<i>``; the next block starts from zero."""
+    t = Tracer(enabled=True)
+    reg = traced(t)
+    t.count("moe.slots", 12)
+    t.count("moe.slots", 6)
+    t.count("moe.slots.held", torch.tensor([1, 0, 3]))
+    t.count("moe.slots.held", torch.tensor([2, 2, 0], dtype=torch.int32))
+    t.count("one", torch.tensor(4))
+    assert reg.snapshot()["counters"] == {}
+    t.settle(None, 0)
+    assert reg.snapshot()["counters"] == {
+        "moe.slots": 18, "moe.slots.held.0": 3, "moe.slots.held.1": 2,
+        "moe.slots.held.2": 3, "one": 4}
+    t.count("moe.slots.held", torch.tensor([1, 1, 1]))
+    t.settle(None, 0)
+    assert reg.snapshot()["counters"]["moe.slots.held.2"] == 4
+    off = Tracer(enabled=False)
+    off.count("moe.slots", 3)
+    assert off._counts == {}
+
+
 def test_engine_round_phase_spans_nest_in_dispatch(traced):
     """With tracing on, every round driven by ``RoundEngine`` yields N
     ``client.train``, N ``client.encode`` and one ``server.aggregate``,
