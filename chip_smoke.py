@@ -262,6 +262,23 @@ Phases, in order; any failure exits non-zero:
              10's atol). The wall from the ranks' start to the last check
              stays under 180 s.
 
+23. B7      — causal_attention (``kernels/causal_attention.py``) at the
+             main path's shapes, S = 4,096: qwen1.5-0.5b's attention (16
+             heads of 64) and Moonlight's latent attention (16 heads, q·k
+             192, v 128 as a strided view). Forward and backward against
+             the plain version on the card (each output no farther from the
+             f32 answer than twice the plain bf16 version, plus 1e-5 of its
+             scale), bitwise repeatable; then, in turns (kernel, plain,
+             library, library, plain, kernel), each direction's device time
+             in a CUDA graph, its bound (the causal half of 2 products
+             forward and 5 backward at 989 TFLOP/s bf16), the plain
+             version's time and ``F.scaled_dot_product_attention``'s
+             (``library_ms``, a yardstick the port never calls).
+
+``python3 chip_smoke.py --phases 19,21,23`` runs phases 1 and 2, then
+those of the phases that take nothing from an earlier one (8–11, 19, 20,
+22, 23, and 21 after 19), in order.
+
 Phase 7 adds the full-width mamba2 round's profile and B1, B2 (with
 ``torch.addcmul`` beside), B3a and B3b at mamba2's d, the wall time of
 a main-path round under phase 17 (a) beside the single-process round, in
@@ -331,6 +348,7 @@ from repro_torch.fl import sharding as sharding_mod  # noqa: E402
 from repro_torch.fl.sharding import make_fl_shardings  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import bitpack as bp_mod  # noqa: E402
+from repro_torch.kernels import causal_attention as ca_mod  # noqa: E402
 from repro_torch.kernels import ef_update as ef_mod  # noqa: E402
 from repro_torch.kernels import fused_cosine as fc_mod  # noqa: E402
 from repro_torch.kernels import leaf_table, pack_table  # noqa: E402
@@ -345,6 +363,7 @@ from repro_torch.launch import specs as specs_mod  # noqa: E402
 from repro_torch.launch.worker import (launch_counts,  # noqa: E402
                                        vision_setup)
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.build import (build_model, syn_loss_fn,  # noqa: E402
@@ -551,6 +570,7 @@ def reset_counts() -> None:
     ssd_mod.LAUNCHES = 0
     sq_mod.LAUNCHES = 0
     tm_mod.LAUNCHES = 0
+    ca_mod.LAUNCHES = 0
 
 
 def counts() -> dict:
@@ -1554,6 +1574,129 @@ def phase_b56(dev) -> float:
           f"== CPU threshold); 3 CUDA graph replays of 2 calls each bitwise "
           f"the eager call; a first call inside a capture raises")
     return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 23: B7 causal_attention at the main path's shapes
+# ---------------------------------------------------------------------------
+
+# (label, B, S, H, KV, D, DV, v a strided view as MLA's)
+B7_SHAPES = (("qwen1.5-0.5b", 1, 4096, 16, 16, 64, 64, False),
+             ("moonlight-16b-a3b", 1, 4096, 16, 16, 192, 128, True))
+
+
+def b7_inputs(g: torch.Generator, B, S, H, KV, D, DV, strided):
+    dev = g.device
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    q, k = draw(B, S, H, D), draw(B, S, KV, D)
+    v = draw(B, S, KV, D + DV)[..., D:] if strided else draw(B, S, KV, DV)
+    return q, k, v, draw(B, S, H, DV)
+
+
+def check_b7(label: str, q, k, v, do, scale) -> None:
+    """The kernels' o, dq, dk, dv against the plain version's: each no
+    farther from the plain version in f32 than twice the plain bf16
+    version, plus 1e-5 of its scale; two runs bitwise equal."""
+    def kernel():
+        o, m, l = ca_mod._forward(q, k, v, scale)
+        return (o, *ca_mod._backward(q, k, v, do, m, l, scale))
+
+    def plain(*ts):
+        o, m, l = ca_mod.causal_attention_plain(*ts[:3], scale)
+        return (o, *ca_mod.causal_attention_plain_backward(*ts, m, l, scale))
+
+    got, again = kernel(), kernel()
+    want = plain(q, k, v, do)
+    exact = plain(*(t.float() for t in (q, k, v, do)))
+    worst = []
+    for name, a, b, p, x in zip(("o", "dq", "dk", "dv"), got, again, want,
+                                exact):
+        if not torch.equal(a, b):
+            raise AssertionError(f"B7 {label} {name}: two runs differ")
+        ek, ep = (a.float() - x).abs(), (p.float() - x).abs()
+        floor = 1e-5 * float(x.abs().max())
+        if (float(ek.max()) > 2 * float(ep.max()) + floor
+                or float(ek.mean()) > 2 * float(ep.mean()) + floor):
+            raise AssertionError(
+                f"B7 {label} {name}: kernel off the f32 answer by max "
+                f"{float(ek.max()):.3e} mean {float(ek.mean()):.3e}, the "
+                f"plain bf16 version by {float(ep.max()):.3e}, "
+                f"{float(ep.mean()):.3e}")
+        worst.append(f"{name} {float(ek.max()):.2e}/{float(ep.max()):.2e}")
+    print(f"  {label}: kernel/plain max |err| from f32: {', '.join(worst)}; "
+          f"bitwise repeatable")
+
+
+def phase_b7(dev) -> list:
+    phase("B7 causal_attention vs plain and timed, on the card")
+    g = gen(dev, 41)
+    rows = []
+    for label, B, S, H, KV, D, DV, strided in B7_SHAPES:
+        q, k, v, do = b7_inputs(g, B, S, H, KV, D, DV, strided)
+        scale = attn_mod._scale(D)
+        check_b7(label, q, k, v, do, scale)
+        o, m, l = ca_mod._forward(q, k, v, scale)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(
+            qg.transpose(1, 2), kg.transpose(1, 2), vg.transpose(1, 2),
+            is_causal=True, scale=scale)
+        lib_do = do.transpose(1, 2)
+        calls = {
+            "kernel_fwd": lambda: ca_mod._forward(q, k, v, scale),
+            "kernel_bwd": lambda: ca_mod._backward(q, k, v, do, m, l, scale),
+            "plain_fwd": lambda: ca_mod.causal_attention_plain(q, k, v,
+                                                               scale),
+            "plain_bwd": lambda: ca_mod.causal_attention_plain_backward(
+                q, k, v, do, m, l, scale),
+            "library_fwd": lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, scale=scale),
+        }
+        order = ["kernel", "plain", "library", "library", "plain", "kernel"]
+        times = {name: [] for name in calls}
+        times["library_bwd"] = []
+        for who in order:
+            for name, fn in calls.items():
+                if name.startswith(who):
+                    times[name].append(graph_ms(fn, reps=10, replays=7))
+            if who == "library":
+                times["library_bwd"].append(call_ms(
+                    lambda: torch.autograd.grad(lib_out, (qg, kg, vg),
+                                                lib_do, retain_graph=True),
+                    reps=20))
+        # forward q.k and p.v; backward q.k again, dO.v, dS.k, dS.q, p.dO
+        n = ca_mod.flops(B, S, H, D, DV)
+        flops = {"fwd": n["attn_fwd"],
+                 "bwd": n["attn_bwd_dq"] + n["attn_bwd_dkdv"]}
+        launches0 = ca_mod.LAUNCHES
+        ca_mod._backward(q, k, v, do, *ca_mod._forward(q, k, v, scale)[1:],
+                         scale)
+        row = {"name": f"B7 causal_attention, {label}", "B": B, "S": S,
+               "H": H, "KV": KV, "D": D, "DV": DV,
+               "launches_fwd_bwd": ca_mod.LAUNCHES - launches0}
+        for d in ("fwd", "bwd"):
+            ms = sum(times[f"kernel_{d}"]) / len(times[f"kernel_{d}"])
+            row[d] = {
+                "ms": times[f"kernel_{d}"],
+                "bound_ms": flops[d] / roofline.BF16_FLOPS * 1e3,
+                "tflops": flops[d] / (ms * 1e-3) / 1e12,
+                "plain_ms": times[f"plain_{d}"],
+                "library_ms": times[f"library_{d}"]}
+        print(f"  {label}: fwd {row['fwd']['ms']} ms (bound "
+              f"{row['fwd']['bound_ms']:.4f}, {row['fwd']['tflops']:.1f} "
+              f"TFLOP/s), bwd {row['bwd']['ms']} ms (bound "
+              f"{row['bwd']['bound_ms']:.4f}, {row['bwd']['tflops']:.1f} "
+              f"TFLOP/s); plain {row['fwd']['plain_ms']} / "
+              f"{row['bwd']['plain_ms']} ms; library "
+              f"{row['fwd']['library_ms']} / {row['bwd']['library_ms']} ms")
+        rows.append(row)
+        del q, k, v, do, o, m, l, qg, kg, vg, lib_out
+        free_card()
+    print(json.dumps({"causal_attention": rows}))
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -2611,7 +2754,8 @@ def bound_ms(nbytes: int, flops: int) -> tuple:
 
 KERNEL_NAMES = ("fused_cosine_table", "ef_update_table",
                 "pack_signs_table", "unpack_signs_frames",
-                "ssd_chunk_kernel", "sign_quant_kernel", "topk_mask_kernel")
+                "ssd_chunk_kernel", "sign_quant_kernel", "topk_mask_kernel",
+                "attn_fwd", "attn_bwd_dq", "attn_bwd_dkdv")
 
 
 def in_turns(new, old) -> tuple:
@@ -3587,8 +3731,14 @@ def phase_tl_train(out_dir: str, dev) -> dict:
     state, hist = train.train_lm(args, cfg, LM_COMP, LM_SEQ, LM_NUM_SEQS)
     torch.cuda.synchronize()
     launched, wall, peak = counts(), time.perf_counter() - t0, peak_gib()
+    # B7 in every layer of every microbatch's local training: two forwards
+    # (the remat runs each layer's again in the backward), one backward of
+    # two launches; the encode's 16 positions keep _sdpa
+    seq_layers = (LM_ROUNDS * LM_N * cfg.num_layers
+                  * train.num_micro_for(LM_BATCH, LM_SEQ))
     want = only(fused_cosine=LM_ROUNDS * LM_N * (LM_COMP.syn_steps + 1),
-                ef_update=LM_ROUNDS * LM_N)
+                ef_update=LM_ROUNDS * LM_N,
+                causal_attention=seq_layers * (2 + 2))
     if launched != want:
         raise AssertionError(f"{TL_ARCH} 3SFC rounds: launches {launched}, "
                              f"expected {want}")
@@ -4779,7 +4929,8 @@ def tp_child(argv) -> int:
     return 0
 
 
-def main() -> int:
+def start() -> tuple:
+    """Phases 1 and 2: (the card's name and power limit, the device)."""
     phase("device")
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; "
@@ -4800,7 +4951,11 @@ def main() -> int:
     built = _build.build_all()
     print(f"  built {sorted(built) or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.2f} s")
+    return card, dev
 
+
+def main() -> int:
+    card, dev = start()
     errs = phase_kernels(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
         state, launched = phase_main_path(out_dir)
@@ -4812,6 +4967,7 @@ def main() -> int:
     serve_launched = phase_serve()
     phase_routes(dev)
     err_b5 = phase_b56(dev)
+    phase_b7(dev)
     front_launched = phase_compressors(state, batches, dev)
     fs_round, fs_state = phase_accounted(state, batches, syn0)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
@@ -4894,7 +5050,38 @@ def main() -> int:
     return 0
 
 
+def main_phases(spec: str) -> int:
+    """Phases 1 and 2, then the standalone phases ``spec`` names ("19,21"),
+    in order; 21 dry-runs against 19's measurements, so needs it."""
+    wanted = sorted({int(n) for n in spec.split(",")})
+    standalone = {8: phase_b4, 9: lambda dev: phase_serve(),
+                  10: phase_routes, 11: phase_b56, 20: phase_contracts,
+                  22: phase_tp, 23: phase_b7}
+    unknown = set(wanted) - set(standalone) - {19, 21}
+    if unknown or (21 in wanted and 19 not in wanted):
+        raise SystemExit(f"--phases takes {sorted({*standalone, 19, 21})} "
+                         f"(21 with 19), not {spec}")
+    card, dev = start()
+    results = {}
+    for n in wanted:
+        if n == 19:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out:
+                results[n] = phase_lm_families(out, dev)
+        elif n == 21:
+            results[n] = phase_dry_runs(results[19])
+        else:
+            results[n] = standalone[n](dev)
+        free_card()
+    print(f"chip_smoke phases {wanted} wall {time.perf_counter() - _T0:.1f} "
+          f"s (the kernels' build included)")
+    print(card)
+    print(json.dumps({"ok": True, "phases": wanted}))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phases"]:
+        sys.exit(main_phases(sys.argv[2]))
     if sys.argv[1:2] == ["--fanout-rank"]:
         sys.exit(fanout_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--tp-rank"]:

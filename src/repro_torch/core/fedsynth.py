@@ -26,6 +26,7 @@ import torch
 from repro_torch.core import flat
 from repro_torch.core.threesfc import LossFn, SynData
 from repro_torch.core.tree import PyTree, tree_flatten, tree_unflatten
+from repro_torch.kernels import causal_attention
 
 
 class FedSynthResult(NamedTuple):
@@ -84,8 +85,11 @@ def encode(
     gnorm = None
     for _ in range(opt_steps):
         syn_v = SynData(*[t.detach().requires_grad_(True) for t in syn])
-        g = torch.autograd.grad(objective(syn_v), list(syn_v),
-                                allow_unused=True)
+        # grad-through-grads: attention keeps its twice-differentiable
+        # route, in the backwards too (the remat runs the forwards again)
+        with causal_attention.second_order():
+            g = torch.autograd.grad(objective(syn_v), list(syn_v),
+                                    allow_unused=True)
         # an input the loss never reads (dense labels' empty y_rank) has a
         # zero gradient, as jax.grad reports it
         g = [torch.zeros_like(p) if gi is None else gi

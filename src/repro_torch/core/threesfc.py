@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.core import flat
 from repro_torch.core.tree import PyTree, tree_flatten, tree_unflatten
+from repro_torch.kernels import causal_attention
 from repro_torch.models import shard
 
 
@@ -179,8 +180,12 @@ def encode(
     syn = SynData(*[t.detach() for t in syn0])
     for _ in range(steps):
         syn_v = SynData(*[t.detach().requires_grad_(True) for t in syn])
-        val, _ = _objective(loss_fn, w, syn_v, target, lam, create_graph=True)
-        g = torch.autograd.grad(val, list(syn_v), allow_unused=True)
+        # grad-of-grad: attention keeps its twice-differentiable route, in
+        # the backwards too (the remat runs the forwards again there)
+        with causal_attention.second_order():
+            val, _ = _objective(loss_fn, w, syn_v, target, lam,
+                                create_graph=True)
+            g = torch.autograd.grad(val, list(syn_v), allow_unused=True)
         # an input the loss never reads (dense labels' empty y_rank) has a
         # zero gradient, as jax.grad reports it
         g = [torch.zeros_like(p) if gi is None else shard.placed_as(gi, p)

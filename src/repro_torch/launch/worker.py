@@ -71,8 +71,8 @@ from repro_torch.fl.engine import (_DATA_FOLD, _ROUND_FOLD, ClientPools,
                                    vision_batcher)
 from repro_torch.fl.round import (client_generator, fold_in,
                                   make_client_step, missed_ef)
-from repro_torch.kernels import bitpack, ef_update, fused_cosine
-from repro_torch.kernels import sign_quant, ssd_chunk, topk_mask
+from repro_torch.kernels import bitpack, causal_attention, ef_update
+from repro_torch.kernels import fused_cosine, sign_quant, ssd_chunk, topk_mask
 from repro_torch.launch.train import (resolve_device, vision_data,
                                       vision_model, vision_strategy)
 from repro_torch.models.cnn import VisionSpec
@@ -92,7 +92,8 @@ def launch_counts() -> Dict[str, int]:
             "ef_update": ef_update.LAUNCHES, **bitpack.LAUNCHES,
             "ssd_chunk": ssd_chunk.LAUNCHES,
             "sign_quant": sign_quant.LAUNCHES,
-            "topk_mask": topk_mask.LAUNCHES}
+            "topk_mask": topk_mask.LAUNCHES,
+            "causal_attention": causal_attention.LAUNCHES}
 
 
 def vision_setup(run: RunConfig, *, model: str, spec: VisionSpec,

@@ -12,6 +12,21 @@ and the probabilities are cast back to ``v``'s dtype. This is written out
 with einsums, as the reference is: ``F.scaled_dot_product_attention``
 would take the softmax in the activation dtype.
 
+Causal self-attention (``attention`` and ``models/mla.py``'s ``mla``) goes
+through ``causal_self_attention``, which takes one of two routes by what it
+can observe in its operands: kernel B7 (``kernels/causal_attention.py``,
+the same arithmetic with the logits kept on chip) for CUDA tensors that
+are not ``DTensor``s, in bf16, with head dimensions the kernel is built
+for, no window and at least a tile (``flash.TILE``) of positions, outside
+``flash.second_order()``; ``_sdpa`` with ``causal_mask`` for everything
+else (the CPU, f32, tensor parallelism, a window, short sequences, and
+the forwards of the 3SFC and FedSynth encoders' objectives, which run
+inside ``second_order()`` since the kernel takes no second derivative).
+Counters ``attention.kernel`` and
+``attention.plain`` (``obs.layer_count``) count the calls of each route,
+and each ``attention`` call is one ``attention`` span (``obs.layer_span``),
+the remat's recompute included, not the backward.
+
 The decode cache is a ring buffer of ``cache_len`` slots holding (k, v,
 absolute position), a position of -1 marking an empty slot: ``cache_len ==
 seq_len`` is exact full attention, ``cache_len == window`` exact
@@ -24,9 +39,11 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels import causal_attention as flash
 from repro_torch.models import params as P_
 from repro_torch.models import shard
 from repro_torch.models.rope import apply_rope
+from repro_torch.obs import layer_count, layer_span
 
 NEG_INF = -1e30
 
@@ -200,22 +217,56 @@ def causal_mask(sq: int, sk: int, window: int = 0, offset: int = 0,
     return m
 
 
+def kernel_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 window: int = 0) -> bool:
+    """Whether causal self-attention over q (.., S, H, D), k, v takes
+    kernel B7: CUDA tensors, none a ``DTensor``, all bf16 and (B, S, heads,
+    dim), (D, DV) one of ``flash.PAIRS``, no window, as many keys as
+    queries and at least ``flash.TILE`` of them, and no second derivative
+    to come (outside ``flash.second_order()``)."""
+    return (not flash.in_second_order()
+            and q.device.type == "cuda"
+            and not any(shard.is_dtensor(t) for t in (q, k, v))
+            and q.dtype == k.dtype == v.dtype == torch.bfloat16
+            and q.dim() == k.dim() == v.dim() == 4
+            and (q.shape[-1], v.shape[-1]) in flash.PAIRS
+            and window == 0
+            and q.shape[-3] == k.shape[-3] >= flash.TILE)
+
+
+def causal_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          window: int = 0) -> torch.Tensor:
+    """``_sdpa(q, k, v, causal_mask(S, S, window))``, through kernel B7
+    where ``kernel_route`` holds (counter ``attention.kernel``), else
+    through ``_sdpa`` itself (counter ``attention.plain``)."""
+    if kernel_route(q, k, v, window):
+        layer_count("attention.kernel", 1, q)
+        return flash.causal_attention(q, k, v, _scale(q.shape[-1]))
+    layer_count("attention.plain", 1, q)
+    S = q.shape[-3]
+    return _sdpa(q, k, v, causal_mask(S, k.shape[-3], window,
+                                      device=q.device))
+
+
 def attention(p: Dict, x: torch.Tensor, *, theta: float, window: int = 0,
               positions: Optional[torch.Tensor] = None,
               xkv: Optional[torch.Tensor] = None,
               causal: bool = True) -> torch.Tensor:
     """Full-sequence attention. x: (B, S, d). Cross-attention: pass xkv,
     causal=False (no RoPE on either side)."""
-    S = x.shape[-2]
-    q, k, v = _project_qkv(p, x, xkv)
-    if positions is None:
-        positions = torch.arange(S, device=x.device)
-    if xkv is None:  # self-attention: rope on both
-        q = apply_rope(q, positions, theta)
-        k = apply_rope(k, positions, theta)
-    mask = (causal_mask(S, k.shape[-3], window, device=x.device)
-            if causal else None)
-    return _out(_sdpa(q, k, v, mask), p["wo"])
+    with layer_span("attention", x):
+        S = x.shape[-2]
+        q, k, v = _project_qkv(p, x, xkv)
+        if positions is None:
+            positions = torch.arange(S, device=x.device)
+        if xkv is None:  # self-attention: rope on both
+            q = apply_rope(q, positions, theta)
+            k = apply_rope(k, positions, theta)
+        if causal and xkv is None:
+            return _out(causal_self_attention(q, k, v, window), p["wo"])
+        mask = (causal_mask(S, k.shape[-3], window, device=x.device)
+                if causal else None)
+        return _out(_sdpa(q, k, v, mask), p["wo"])
 
 
 # ---------------------------------------------------------------------------

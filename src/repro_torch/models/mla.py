@@ -12,8 +12,9 @@ Weights (x of width d, H heads):
   wo (H, v, d)
 
 q·k runs over ``nope + rope`` dims (scale 1/sqrt(nope + rope)) and the
-values have ``v`` dims; the attention itself is ``attention._sdpa`` (f32
-logits and softmax), the mask ``attention.causal_mask`` and the rotation
+values have ``v`` dims; the attention itself is
+``attention.causal_self_attention`` (f32 logits and softmax: kernel B7 on
+the card in bf16, else ``_sdpa`` with ``causal_mask``) and the rotation
 ``rope.apply_rope``, which turns the two halves of the rope dims against
 each other. Published checkpoints store those dims as interleaved pairs
 (their loaders permute them before rotating halves); with weights drawn
@@ -66,6 +67,5 @@ def mla(p: Dict, x: torch.Tensor, *, theta: float, rope_dim: int,
         q = torch.cat([q_nope, apply_rope(q_pe, positions, theta)], -1)
         k_pe = apply_rope(k_pe[..., None, :], positions, theta)
         k = torch.cat([k_nope, k_pe.expand_as(q_pe)], -1)
-        out = attn_mod._sdpa(q, k, v, attn_mod.causal_mask(S, S,
-                                                           device=x.device))
+        out = attn_mod.causal_self_attention(q, k, v)
         return attn_mod._out(out, p["wo"])

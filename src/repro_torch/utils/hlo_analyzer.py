@@ -28,8 +28,10 @@ tensors it records the same ops.
   these bytes are at least the reference's, which skips what XLA fuses.
 * **kernels** — a hand-written kernel's meta branch (``kernels/meta.py``)
   adds one record per launch it stands in for, named after the kernel:
-  0 FLOPs and operand plus result bytes, as the reference counts a Pallas
-  custom call.
+  operand plus result bytes, as the reference counts a Pallas custom call,
+  and the products' FLOPs the branch reports (bf16; B7's over the causal
+  half of its logits, which the einsums it replaces counted), 0 for the
+  kernels that run no products.
 * **collectives** — each call of a ``torch.distributed`` collective,
   through ``collective_hook``: the hook the round contracts' recorder
   (``repro_torch.analysis.contracts.RoundRecorder``) installs too, so the
@@ -479,10 +481,13 @@ class _Recorder(TorchDispatchMode):
                 _flop_class(func, out) if flops else ""))
         return out
 
-    def on_kernel(self, kernel: str, operands, results) -> None:
+    def on_kernel(self, kernel: str, operands, results,
+                  flops: float) -> None:
+        # a kernel's products run on bf16 tensor cores (B7's); the others
+        # run none
         self.trace.ops.append(OpRecord(
-            kernel, 0.0, float(_nbytes(operands) + _nbytes(results)),
-            self.op_name, kernel=True))
+            kernel, flops, float(_nbytes(operands) + _nbytes(results)),
+            self.op_name, "bf16" if flops else "", kernel=True))
 
     def on_collective(self, entry: str, operands) -> None:
         self.trace.collectives.append(CollectiveInstr(

@@ -56,6 +56,9 @@ def pytest_configure(config):
         "workers); armed with a hard SIGALRM timeout (default "
         f"{TRANSPORT_TIMEOUT_S}s, override per-test with timeout=<s>) so a "
         "hung wire fails loudly instead of hanging the suite")
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card; skips where none is visible "
+        "(the test decides when it runs)")
 
 
 @pytest.hookimpl(hookwrapper=True)

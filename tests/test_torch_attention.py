@@ -335,3 +335,254 @@ def test_decode_attention_bf16_cache_keeps_its_dtype():
     np.testing.assert_array_equal(new.pos.numpy(), np.asarray(jnew.pos))
     np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=2 ** -7,
                                atol=2 ** -7)
+
+
+# ---------------------------------------------------------------------------
+# kernel B7's plain version and the causal route
+# ---------------------------------------------------------------------------
+
+# (D, DV) pairs the kernel is built for, as the plain version takes them
+B7_PAIRS = [(64, 64), (192, 128)]
+# S under, at and off a multiple of the forward's 64-query tile
+B7_SEQS = [40, 64, 100]
+
+
+def _b7_inputs(B, S, H, KV, D, DV, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    ts = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+          .to(dtype).requires_grad_()
+          for s in ((B, S, H, D), (B, S, KV, D), (B, S, KV, DV))]
+    g = torch.from_numpy(rng.standard_normal((B, S, H, DV))
+                         .astype(np.float32)).to(dtype)
+    return ts, g
+
+
+@pytest.mark.parametrize("S", B7_SEQS)
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("pair", B7_PAIRS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b7_plain_matches_sdpa_forward_and_gradients(dtype, pair, G, S):
+    """The two-pass plain version (``kernels.causal_attention``, the path a
+    CPU tensor takes) against ``_sdpa`` with ``causal_mask``, forward and
+    the gradients of q, k and v through autograd: in f32 within 1e-5 (sum
+    orders only); in bf16 within one bf16 ulp of the output's scale (l
+    summed in another order moves a probability across a rounding
+    boundary, no more)."""
+    from repro_torch.kernels import causal_attention as flash
+    D, DV = pair
+    (q, k, v), g = _b7_inputs(2, S, 2 * G, 2, D, DV, dtype)
+    want = attn._sdpa(q, k, v, attn.causal_mask(S, S))
+    got = flash.causal_attention(q, k, v, attn._scale(D))
+    assert got.dtype == dtype and got.shape == want.shape
+    gw = torch.autograd.grad(want, (q, k, v), g)
+    gg = torch.autograd.grad(got, (q, k, v), g)
+    for a, b in zip((got, *gg), (want, *gw)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        tol = (1e-5 if dtype == torch.float32 else 2 ** -8) * float(
+            b.detach().abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("pair", B7_PAIRS)
+def test_b7_plain_statistics_are_the_softmax_max_and_sum(pair):
+    """The first pass's m and l are the rows' max and Σ exp(s − m) of the
+    masked, scaled logits, (B, H, S) with H in ``_sdpa``'s head order."""
+    from repro_torch.kernels import causal_attention as flash
+    D, DV = pair
+    (q, k, v), _ = _b7_inputs(1, 100, 4, 2, D, DV, torch.float32, seed=5)
+    _, m, l = flash.causal_attention_plain(q, k, v, attn._scale(D))
+    s = torch.einsum("bqhk,bshk->bhqs", q, k.repeat_interleave(2, dim=2))
+    s = torch.where(attn.causal_mask(100, 100),
+                    s * attn._scale(D), attn.NEG_INF)
+    torch.testing.assert_close(m, s.amax(-1), rtol=0, atol=0)
+    torch.testing.assert_close(l, torch.exp(s - m[..., None]).sum(-1),
+                               rtol=1e-5, atol=0)
+
+
+def test_b7_function_raises_under_create_graph():
+    """Differentiable once: a backward with create_graph=True (a second
+    derivative) raises rather than drop attention's second-order terms."""
+    from repro_torch.kernels import causal_attention as flash
+    (q, k, v), g = _b7_inputs(1, 70, 2, 2, 64, 64, torch.float32)
+    out = flash.causal_attention(q, k, v, attn._scale(64))
+    with pytest.raises(RuntimeError, match="differentiable once"):
+        torch.autograd.grad(out, q, g, create_graph=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b7_route_keeps_sdpa_on_the_cpu(dtype):
+    """On the CPU ``causal_self_attention`` is ``_sdpa`` with
+    ``causal_mask``, bitwise, at any length and dtype, its second
+    derivative included (the 3SFC encoder's)."""
+    (q, k, v), g = _b7_inputs(1, 80, 4, 2, 64, 64, dtype, seed=2)
+    assert not attn.kernel_route(q, k, v)
+    got = attn.causal_self_attention(q, k, v)
+    want = attn._sdpa(q, k, v, attn.causal_mask(80, 80))
+    assert torch.equal(got, want)
+    (gq,) = torch.autograd.grad((got.float() * g.float()).sum(), q,
+                                create_graph=True)
+    (wq,) = torch.autograd.grad((want.float() * g.float()).sum(), q,
+                                create_graph=True)
+    assert torch.equal(gq, wq)
+    (hg,) = torch.autograd.grad(gq.float().square().sum(), k)
+    (hw,) = torch.autograd.grad(wq.float().square().sum(), k)
+    assert torch.equal(hg, hw)
+
+
+@pytest.mark.parametrize("case,takes", [
+    ("bf16", True), ("f32", False), ("short", False), ("window", False),
+    ("head_dims", False), ("cross", False), ("grouped", True),
+    ("latent", True), ("second_order", False)])
+def test_b7_route_by_what_it_observes(case, takes):
+    """On fake CUDA tensors (no card needed): the kernel takes bf16 causal
+    self-attention with instantiated head dims, no window and at least a
+    tile of positions; f32, a short sequence (the encoder's 16 synthetic
+    positions), a window, other head dims, unequal query and key lengths
+    and a forward inside ``second_order()`` (a second derivative to come,
+    at any length) keep ``_sdpa``. The kernel's route runs the meta branch
+    (no launch counted)."""
+    import contextlib
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import causal_attention as flash
+    S, H, KV, D, DV, dt, window, Sk = 128, 4, 4, 64, 64, torch.bfloat16, 0, 0
+    if case == "f32":
+        dt = torch.float32
+    elif case == "short":
+        S = 16
+    elif case == "window":
+        window = 32
+    elif case == "head_dims":
+        D = DV = 32
+    elif case == "cross":
+        Sk = 256
+    elif case == "grouped":
+        KV = 2
+    elif case == "latent":
+        D, DV = 192, 128
+    scope = (flash.second_order() if case == "second_order"
+             else contextlib.nullcontext())
+    before = flash.LAUNCHES
+    with FakeTensorMode(), scope:
+        q = torch.empty((1, S, H, D), dtype=dt, device="cuda")
+        k = torch.empty((1, Sk or S, KV, D), dtype=dt, device="cuda")
+        v = torch.empty((1, Sk or S, KV, DV), dtype=dt, device="cuda")
+        assert attn.kernel_route(q, k, v, window) == takes
+        if takes:
+            out = attn.causal_self_attention(q, k, v)
+            assert out.shape == (1, S, H, DV) and out.dtype == dt
+    assert flash.LAUNCHES == before
+
+
+def test_attention_span_and_route_counters():
+    """With tracing on, each ``attention`` call is one ``attention`` span;
+    causal self-attention counts its route (here ``attention.plain``: the
+    CPU), cross-attention none."""
+    from repro_torch.obs import configure_tracer
+    _, tp = _params(False)
+    x = torch.from_numpy(_x((2, 5, D), 4))
+    tracer = configure_tracer(True)
+    try:
+        attn.attention(tp, x, theta=10000.0)
+        attn.attention(tp, x, theta=10000.0, xkv=x, causal=False)
+        names = [r["name"] for r in tracer.drain()]
+        counts = dict(tracer._counts)
+    finally:
+        configure_tracer(False)
+    assert names.count("attention") == 2
+    assert counts == {"attention.plain": 1}
+
+
+@pytest.mark.parametrize("encoder", ["threesfc", "fedsynth"])
+def test_encoders_run_their_second_derivative_in_second_order(encoder):
+    """The forwards a second derivative runs through (3SFC's S steps,
+    FedSynth's unrolled objective) run inside ``second_order()``, so
+    attention keeps ``_sdpa`` there at any synthetic length; the
+    first-order evaluations (3SFC's last, FedSynth's decode) run outside
+    it, where B7 may take them."""
+    from repro_torch.core import fedsynth, threesfc
+    from repro_torch.kernels import causal_attention as flash
+    rng = np.random.default_rng(0)
+    w = {"a": torch.from_numpy(rng.standard_normal((6, 3))
+                               .astype(np.float32))}
+    target = {"a": torch.from_numpy(rng.standard_normal((6, 3))
+                                    .astype(np.float32))}
+    syn0 = threesfc.SynData(
+        torch.from_numpy(rng.standard_normal((2, 6)).astype(np.float32)),
+        torch.from_numpy(rng.standard_normal((2, 3)).astype(np.float32)),
+        torch.zeros((0, 0)))
+    seen = []
+
+    def loss_fn(p, syn):
+        seen.append(flash.in_second_order())
+        return threesfc.soft_xent(syn.x @ p["a"], syn.labels())
+
+    if encoder == "threesfc":
+        threesfc.encode(loss_fn, w, target, syn0, steps=3)
+        assert seen == [True, True, True, False]
+    else:
+        fedsynth.encode(loss_fn, w, target, syn0, unroll_steps=2,
+                        opt_steps=2)
+        assert seen == [True, True, True, True, False, False]
+    assert not flash.in_second_order()
+
+
+def test_bf16_encode_at_a_tile_of_positions_keeps_sdpa_for_its_grad_of_grad(
+        monkeypatch):
+    """A bf16 3SFC encode with 64 synthetic positions (a tile) through a
+    two-layer model of 64-dim heads, its route taken as on the card (the
+    device aside; the CPU's B7 is the plain version, differentiable once
+    as the kernel): the S steps' grad-of-grad, the remat's recomputed
+    forwards included, keeps ``_sdpa``; only the last, first-order
+    evaluation takes B7 (per layer two forwards and a backward). Without
+    ``second_order()`` the encode raises."""
+    import contextlib
+    from repro_torch.configs.base import CompressorConfig, get_smoke_config
+    from repro_torch.core import threesfc
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels import causal_attention as flash
+    from repro_torch.models.build import (build_model, syn_loss_fn,
+                                          syn_spec_for)
+    calls = []
+    forward, backward = flash._forward, flash._backward
+    monkeypatch.setattr(attn, "kernel_route", lambda q, k, v, window=0: (
+        not flash.in_second_order() and q.dtype == torch.bfloat16
+        and (q.shape[-1], v.shape[-1]) in flash.PAIRS and window == 0
+        and q.shape[-3] == k.shape[-3] >= flash.TILE))
+    monkeypatch.setattr(flash, "_forward", lambda *a: (
+        calls.append("fwd"), forward(*a))[1])
+    monkeypatch.setattr(flash, "_backward", lambda *a: (
+        calls.append("bwd"), backward(*a))[1])
+    cfg = get_smoke_config("qwen1.5-0.5b").replace(head_dim=64,
+                                                   dtype="bfloat16")
+    model = build_model(cfg)
+    g = torch.Generator().manual_seed(0)
+    params = model.init(g)
+    syn0 = threesfc.init_syn(g, syn_spec_for(cfg, CompressorConfig(
+        kind="threesfc", syn_seq=64, soft_label_rank=8)))
+    target = tree_map(lambda t: torch.randn(t.shape, generator=g), params)
+    res = threesfc.encode(syn_loss_fn(model), params, target, syn0, steps=2)
+    assert sorted(calls) == ["bwd"] * cfg.num_layers + \
+        ["fwd"] * (2 * cfg.num_layers)
+    assert torch.isfinite(res.cosine) and torch.isfinite(res.s)
+    monkeypatch.setattr(flash, "second_order", contextlib.nullcontext)
+    with pytest.raises(RuntimeError, match="differentiable once"):
+        threesfc.encode(syn_loss_fn(model), params, target, syn0, steps=2)
+
+
+def test_second_order_scope_reaches_other_threads():
+    """``second_order()`` holds process-wide: a CUDA backward, and the
+    remat's forwards inside it, run on the autograd engine's own device
+    thread, which must take the route the forward took."""
+    import threading
+    from repro_torch.kernels import causal_attention as flash
+    seen = []
+
+    def look():
+        seen.append(flash.in_second_order())
+
+    with flash.second_order():
+        t = threading.Thread(target=look)
+        t.start()
+        t.join()
+    look()
+    assert seen == [True, False]

@@ -28,7 +28,7 @@ from repro_torch.core.tree import (tree_flatten, tree_leaves,
 from repro_torch.fl import sharding
 from repro_torch.fl.round import CLIENT_SCOPE, FLState, build_fl_round
 from repro_torch.kernels import bitpack, ef_update, fused_cosine, sign_quant
-from repro_torch.kernels import ssd_chunk, topk_mask
+from repro_torch.kernels import causal_attention, ssd_chunk, topk_mask
 from repro_torch.launch import dryrun
 from repro_torch.launch import specs as specs_lib
 from repro_torch.models.build import vision_syn_spec
@@ -327,6 +327,39 @@ def test_kernel_meta_branch(case):
     assert kernels[0].flops == 0.0
     written = sum(t.numel() * t.element_size() for t in got_l)
     assert kernels[0].bytes == read + written
+
+
+@pytest.mark.parametrize("pair", [(64, 64), (192, 128)])
+def test_b7_meta_branch_counts_its_products(pair):
+    """B7's meta branch (fake CUDA tensors, bf16, B = 1, S = 128, H = 4
+    over 2 KV heads) reports each launch with the FLOPs of its products
+    over the causal half of the logits, 128 · 129 / 2 of them a head, in
+    the bf16 class, and counts no launch: the forward q·k and p·v, the
+    backward's dq launch q·k, dO·v and dS·k, its dk, dv launch dSᵀ·q and
+    pᵀ·dO."""
+    D, DV = pair
+    logits = 4 * 128 * 129 // 2
+    want = {"attn_fwd": 2 * logits * (D + DV),
+            "attn_bwd_dq": 2 * logits * (2 * D + DV),
+            "attn_bwd_dkdv": 2 * logits * (D + DV)}
+    assert want["attn_fwd"] == {64: 8_454_144, 192: 21_135_360}[D]
+
+    def fwd_bwd(q, k, v, do):
+        o, m, l = causal_attention._forward(q, k, v, 0.125)
+        return (o, *causal_attention._backward(q, k, v, do, m, l, 0.125))
+
+    before = causal_attention.LAUNCHES
+    with FakeTensorMode():
+        bf = torch.bfloat16
+        args = [torch.empty((1, 128, h, d), dtype=bf, device="cuda")
+                for h, d in ((4, D), (2, D), (2, DV), (4, DV))]
+        tr = H.record(fwd_bwd, *args)
+    assert causal_attention.LAUNCHES == before
+    kernels = [o for o in tr.ops if o.kernel]
+    assert {o.op: o.flops for o in kernels} == want
+    assert causal_attention.flops(1, 128, 4, D, DV) == want
+    assert {o.flop_class for o in kernels} == {"bf16"}
+    assert H.analyze(tr).flops_by_class["bf16"] == sum(want.values())
 
 
 # ---------------------------------------------------------------------------

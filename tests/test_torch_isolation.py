@@ -143,8 +143,8 @@ def test_missing_nvcc_names_where_it_looked(monkeypatch):
 def test_library_names_follow_the_sources():
     paths = {n: _build._lib_path(n) for n in _build.KERNELS}
     assert sorted(p.name.split("-")[0] for p in paths.values()) == \
-        ["libbitpack", "libef_update", "libfused_cosine", "libsign_quant",
-         "libssd_chunk", "libtopk_mask"]
+        ["libbitpack", "libcausal_attention", "libef_update",
+         "libfused_cosine", "libsign_quant", "libssd_chunk", "libtopk_mask"]
     # one source per library
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == \
         sorted(f"{n}.cu" for n in _build.KERNELS)
